@@ -13,13 +13,23 @@ Phases, each reported on its own lines:
   3. every kernel against its plain PyTorch version on the card, at the
      serving path's shapes, in fp32 and bf16, with its time, the plain
      version's, the PyTorch library call's where there is one, and the
-     card's bound for the same work;
+     card's bound for the same work: K-ATT and K-NMS; K-GN at every
+     GroupNorm shape of the fused depth trunk at B = 96 (recorded from one
+     fused trunk pass on the card); K-PRENORM at the CLIP shape
+     (96, 50, 768) beside the port's unfused CLIP attention half-block;
   4. the serving slice: `NavServer(r2r_config(), Agent(device="cuda"),
      max_batch=8)` from seeded random weights keeps 8 sessions live until
-     at least 40 steps are served; every kernel's launch count must grow
-     and no plain version may be called;
+     at least 40 steps are served; every launch count must be exactly
+     what the served programs make (16 K-ATT per perceive, 8 per
+     navigation scoring, 9 per instruction; 1 K-NMS per perceive; no K-GN
+     or K-PRENORM) and no plain version may be called;
+  4b. the same with the fused perception configuration
+     (`DepthEncoderConfig.use_fused_gn`, `ClipConfig.use_fused_block`):
+     54 K-GN and 11 K-PRENORM launches per perceive, K-ATT 5 per perceive;
+     then perceive at B = 8, default and fused configuration in turns;
   5. slice parity: `perceive` + `score_navigation` at full R2R width in
      fp32 on the card (kernels) against the CPU (plain versions);
+  5b. the same for the fused configuration;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -29,6 +39,7 @@ it does the same when no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -52,6 +63,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #   rounds p to bf16 at a running max (online softmax over key tiles) and
 #   the plain version at the row's global max, and both round the output.
 NMS_VALUE_TOL = 1e-6
+# K-GN and K-PRENORM in bf16: two bf16 ulps at the largest output
+# magnitude (0.0625 for outputs in [4, 8)). Kernel and plain version round
+# at the same points, but their fp32 sums (statistics, K = 768 products)
+# run in another order, so a value next to a rounding tie may land one
+# ulp apart; the residual keeps outputs near the input's magnitude.
+BF16_ULPS = 2
 # card (fp32, kernels) against CPU (fp32, plain versions), full R2R
 # width: max |diff| / max |reference| per output. fp32 sums in another
 # order through 12 CLIP blocks, the ResNet-50 trunk and 9+2+4 BERT layers.
@@ -241,6 +258,167 @@ def check_nms(card: str) -> dict:
     return rows
 
 
+def bf16_tol(want: torch.Tensor) -> float:
+    top = want.float().abs().max().item()
+    return BF16_ULPS * 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+
+
+def fused_config(cfg):
+    """`cfg` with the fused perception switches on."""
+    return dataclasses.replace(
+        cfg, clip=dataclasses.replace(cfg.clip, use_fused_block=True),
+        depth=dataclasses.replace(cfg.depth, use_fused_gn=True))
+
+
+def trace_gn_calls(cfg, batch: int) -> collections.Counter:
+    """The K-GN calls of one fused depth-trunk pass over `batch` images on
+    the card: (shape, groups, relu, residual?) -> count. The weights are
+    zeros; only shapes are recorded, and every call's input must be
+    channels_last, the layout K-GN takes."""
+    from etpnav_tpu_torch.models import depth_resnet
+    dcfg = fused_config(cfg).depth
+    params = depth_resnet.DepthParams(dcfg).cuda().requires_grad_(False)
+    calls = collections.Counter()
+    orig = depth_resnet.group_norm_fused
+
+    def record(p, x, groups, eps=1e-5, relu=False, residual=None):
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"K-GN input {tuple(x.shape)} strides "
+                                 f"{x.stride()} is not channels_last")
+        calls[(tuple(x.shape), groups, relu, residual is not None)] += 1
+        return orig(p, x, groups, eps, relu, residual)
+
+    depth_resnet.group_norm_fused = record
+    try:
+        with torch.inference_mode():
+            depth_resnet.encode_depth(
+                params, dcfg,
+                torch.zeros(batch, dcfg.input_size, dcfg.input_size, 1,
+                            device="cuda"))
+    finally:
+        depth_resnet.group_norm_fused = orig
+    return calls
+
+
+def check_group_norm(card: str, calls: collections.Counter) -> dict:
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.models.depth_resnet import GroupNorm
+    from etpnav_tpu_torch.ops.fused_groupnorm import (
+        group_norm_fused,
+        group_norm_plain,
+    )
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for (shape, G, relu, has_res), count in sorted(calls.items()):
+        B, C, H, W = shape
+        p = GroupNorm(C).cuda().requires_grad_(False)
+        p.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g,
+                                                device="cuda"))
+        p.bias.copy_(0.1 * torch.randn(C, generator=g, device="cuda"))
+        x32 = torch.randn(shape, generator=g, device="cuda").to(
+            memory_format=torch.channels_last)
+        r32 = torch.randn(shape, generator=g, device="cuda").to(
+            memory_format=torch.channels_last) if has_res else None
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            res = None if r32 is None else r32.to(dtype)
+            got = group_norm_fused(p, x, G, relu=relu, residual=res)
+            want = group_norm_plain(p, x, G, relu=relu, residual=res)
+            torch.cuda.synchronize()
+            assert got.stride() == x.stride(), "K-GN: output strides"
+            assert torch.isfinite(got.float()).all(), "K-GN: not finite"
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[dtype] if dtype == torch.float32 else bf16_tol(want)
+            name = (f"{C}x{H}x{W}g{G}{'+res' if has_res else ''}"
+                    f"{'+relu' if relu else ''} cl/"
+                    f"{str(dtype).split('.')[-1]}")
+            if err > tol:
+                raise AssertionError(f"K-GN {name}: max abs err {err} > "
+                                     f"{tol}")
+            ms = cuda_ms(lambda: group_norm_fused(p, x, G, relu=relu,
+                                                  residual=res))
+            plain_ms = cuda_ms(lambda: group_norm_plain(p, x, G, relu=relu,
+                                                        residual=res))
+            w, b = p.weight.to(dtype), p.bias.to(dtype)
+            lib_ms = cuda_ms(lambda: F.group_norm(x, G, w, b, 1e-5))
+            # bytes: x and the residual read once, the output written
+            # once; operations: ~8 fp32 ops per element on CUDA cores
+            nbytes = x.numel() * x.element_size() * (3 if has_res else 2)
+            b_ms, b_by = bound_ms(nbytes, 8.0 * x.numel(), torch.float32)
+            rows[name] = {"shape": list(shape), "per_perceive": count,
+                          "max_abs_err": err, "tol": tol, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": b_ms, "bound_by": b_by}
+            log(f"K-GN {name:32s} x{count:<2d} err={err:.3g} (tol {tol:.3g})"
+                f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"group_norm_ms={lib_ms:.4f} (GN only, no ReLU/residual) "
+                f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    return rows
+
+
+def check_prenorm(card: str, cfg) -> dict:
+    from etpnav_tpu_torch.ops.attention import MHA, mha
+    from etpnav_tpu_torch.ops.basic import LayerNorm, init_weights
+    from etpnav_tpu_torch.ops.fused_prenorm import (
+        prenorm_attention,
+        prenorm_attention_plain,
+    )
+    c = cfg.clip
+    D, H, eps = c.width, c.heads, c.layer_norm_eps
+    L = (c.image_size // c.patch_size) ** 2 + 1
+    B = 8 * 12                          # max_batch sessions x 12 views
+    gen = torch.Generator().manual_seed(3)
+    ln, attn = LayerNorm(D), MHA(D)
+    init_weights(attn, gen)
+    with torch.no_grad():
+        ln.weight.copy_(1.0 + 0.1 * torch.randn(D, generator=gen))
+        ln.bias.copy_(0.1 * torch.randn(D, generator=gen))
+        for lin in (attn.q, attn.k, attn.v, attn.o):
+            lin.bias.copy_(0.1 * torch.randn(D, generator=gen))
+    ln, attn = ln.cuda().requires_grad_(False), attn.cuda().requires_grad_(
+        False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x32 = torch.randn(B, L, D, generator=g, device="cuda")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        with torch.inference_mode():
+            got = prenorm_attention(x, ln, attn, H, eps)
+            want = prenorm_attention_plain(x, ln, attn, H, eps)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), "K-PRENORM: not finite"
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[dtype] if dtype == torch.float32 else bf16_tol(want)
+            if err > tol:
+                raise AssertionError(f"K-PRENORM {dtype}: max abs err {err}"
+                                     f" > {tol}")
+
+            def unfused():
+                a = ln(x, eps)
+                return x + mha(attn, a, a, H)
+
+            ms = cuda_ms(lambda: prenorm_attention(x, ln, attn, H, eps),
+                         iters=20)
+            plain_ms = cuda_ms(lambda: prenorm_attention_plain(
+                x, ln, attn, H, eps), iters=20)
+            unfused_ms = cuda_ms(unfused, iters=20)
+        M, hd = B * L, D // H
+        nbytes = 2 * x.numel() * x.element_size() + 4 * D * D * 4
+        flops = 2.0 * M * D * 4 * D + 4.0 * B * H * L * L * hd
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        key = str(dtype).split(".")[-1]
+        rows[key] = {"shape": [B, L, D], "max_abs_err": err, "tol": tol,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "unfused_half_block_ms": unfused_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"K-PRENORM ({B},{L},{D}) {key} err={err:.3g} (tol {tol:.3g}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"unfused_half_block_ms={unfused_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}) [{card}]")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
@@ -346,7 +524,8 @@ def serve(card: str, cfg, params, counters) -> dict:
            "score_navigation_p50_ms": statistics.median(nav_ms),
            "batch_p50_ms": statistics.median(batch_ms),
            "client_step_p50_ms": statistics.median(step_ms),
-           "counts": counts}
+           "perceive_calls": len(perceive_ms),
+           "navigation_calls": len(nav_ms), "counts": counts}
     log(f"slice: {json.dumps(res)} [{card}]")
     return res
 
@@ -460,13 +639,77 @@ def slice_parity(card: str, cfg, params, counters) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# launches per call of each served program: K-ATT 16 per perceive (11
+# CLIP blocks, the cls row, 2 waypoint, 2 pano), 8 per navigation scoring
+# (4 cross, 4 graph self), 9 per instruction; K-NMS 1 per perceive. The
+# fused configuration moves CLIP blocks 1-11 to K-PRENORM and adds one
+# K-GN per GroupNorm of the depth trunk.
+PER_CALL = {
+    "default": {"perceive": {"attention_fwd": 16, "heatmap_nms_fused": 1},
+                "navigation": {"attention_fwd": 8},
+                "text": {"attention_fwd": 9}},
+    "fused": {"perceive": {"attention_fwd": 5, "heatmap_nms_fused": 1,
+                           "group_norm_fused": 54, "prenorm_attention": 11},
+              "navigation": {"attention_fwd": 8},
+              "text": {"attention_fwd": 9}},
+}
+
+
+def check_counts(name: str, res: dict) -> None:
+    """Every launch count of a serving run is exactly what its program
+    calls make; plain versions and unlisted kernels count 0."""
+    per = PER_CALL[name]
+    calls = {"perceive": res["perceive_calls"],
+             "navigation": res["navigation_calls"], "text": res["sessions"]}
+    want = {k: sum(per[prog].get(k, 0) * n for prog, n in calls.items())
+            for k in res["counts"]}
+    if res["counts"] != want:
+        raise AssertionError(f"slice {name}: launches {res['counts']} != "
+                             f"{want} for {calls}")
+    log(f"slice {name}: launch counts exact for {calls}")
+
+
+def perceive_ab(card: str, cfgs: dict, params, rounds: int = 8) -> dict:
+    """perceive at B = 8 (96 images) for each configuration, in turns
+    (A B B A), the same observations; host clock around synchronised
+    calls."""
+    from etpnav_tpu_torch.training.agent import Agent
+    agents = {k: Agent(c, params, device="cuda") for k, c in cfgs.items()}
+    rng = np.random.default_rng(9)
+    c = next(iter(cfgs.values()))
+    H, Hd = c.clip.image_size, c.depth.input_size
+    rgb = rng.integers(0, 256, (8, 12, H, H, 3), np.uint8)
+    dep = rng.random((8, 12, Hd, Hd, 1), np.float32)
+    times = {k: [] for k in agents}
+    for a in agents.values():
+        a.perceive(rgb, dep)
+    order = list(agents) + list(agents)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agents[k].perceive(rgb, dep)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    res = {k: {"p50_ms": statistics.median(v), "min_ms": min(v),
+               "n": len(v)} for k, v in times.items()}
+    log(f"perceive A/B (B=8, in turns): {json.dumps(res)} [{card}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
     from etpnav_tpu_torch.config import r2r_config
-    from etpnav_tpu_torch.ops import cuda_build, fused_attention, fused_nms
+    from etpnav_tpu_torch.ops import (
+        cuda_build,
+        fused_attention,
+        fused_groupnorm,
+        fused_nms,
+        fused_prenorm,
+    )
     from etpnav_tpu_torch.training.agent import init_agent_params
 
     # phase 1
@@ -491,44 +734,70 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     # phase 3
+    cfg = r2r_config()
     att_rows = check_attention(card)
     nms_rows = check_nms(card)
+    gn_calls = trace_gn_calls(cfg, batch=8 * 12)
+    log(f"K-GN calls of one fused trunk pass at B=96: "
+        f"{sum(gn_calls.values())} over {len(gn_calls)} shapes")
+    if sum(gn_calls.values()) != PER_CALL["fused"]["perceive"][
+            "group_norm_fused"]:
+        raise AssertionError(f"K-GN: {sum(gn_calls.values())} calls per "
+                             "trunk pass")
+    gn_rows = check_group_norm(card, gn_calls)
+    pre_rows = check_prenorm(card, cfg)
 
     counters = {"attention_fwd": fused_attention.attention_fwd_launches,
                 "attention_plain": fused_attention.attention_plain_calls,
                 "heatmap_nms_fused": fused_nms.heatmap_nms_launches,
-                "heatmap_nms_plain": fused_nms.heatmap_nms_plain_calls}
+                "heatmap_nms_plain": fused_nms.heatmap_nms_plain_calls,
+                "group_norm_fused": fused_groupnorm.group_norm_launches,
+                "group_norm_plain": fused_groupnorm.group_norm_plain_calls,
+                "prenorm_attention":
+                    fused_prenorm.prenorm_attention_launches,
+                "prenorm_attention_plain":
+                    fused_prenorm.prenorm_attention_plain_calls}
     # phase 4
-    cfg = r2r_config()
     t0 = time.perf_counter()
     params = init_agent_params(cfg, seed=0)
     log(f"slice: random R2R weights in {time.perf_counter() - t0:.1f} s")
     host_params = copy.deepcopy(params)
     res = serve(card, cfg, params, counters)
-    c = res["counts"]
-    if c["attention_fwd"] <= 0 or c["heatmap_nms_fused"] <= 0:
-        raise AssertionError(f"slice: a kernel was not launched {c}")
-    if c["attention_plain"] or c["heatmap_nms_plain"]:
-        raise AssertionError(f"slice: a plain version ran {c}")
-    launches = {"attention_fwd": c["attention_fwd"],
-                "heatmap_nms_fused": c["heatmap_nms_fused"]}
+    check_counts("default", res)
+    # phase 4b
+    fcfg = fused_config(cfg)
+    res_f = serve(card, fcfg, params, counters)
+    check_counts("fused", res_f)
+    ab = perceive_ab(card, {"default": cfg, "fused": fcfg}, params)
     del params
     torch.cuda.empty_cache()
     # phase 5
     cfg32 = r2r_config(planner=dataclasses.replace(cfg.planner,
                                                   use_bf16=False))
     slice_parity(card, cfg32, host_params, counters)
+    # phase 5b
+    par_f = slice_parity(card, fused_config(cfg32), host_params, counters)
+    got = {k: par_f["launches_per_call"][k]["perceive"] for k in counters}
+    want = {k: PER_CALL["fused"]["perceive"].get(k, 0) for k in counters}
+    if got != want:
+        raise AssertionError(f"parity fused: perceive launches {got} != "
+                             f"{want}")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
     n = nms_rows["B8"]
+    gn_bf16 = {k: r for k, r in gn_rows.items() if k.endswith("bfloat16")}
+    gn_key = max(gn_bf16, key=lambda k: gn_bf16[k]["bound_ms"])
+    g = gn_bf16[gn_key]
+    p = pre_rows["bfloat16"]
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
+                     ":293 fused_attention_xbatch; "
                      ":340 fused_bias_attention (forward)",
-         "launches": launches["attention_fwd"],
+         "launches": res["counts"]["attention_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in att_rows.values()),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": a["library_ms"],
@@ -536,12 +805,40 @@ def main() -> int:
         {"name": "heatmap_nms_fused", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
-         "launches": launches["heatmap_nms_fused"],
+         "launches": res["counts"]["heatmap_nms_fused"],
          "max_abs_err": max(r["max_abs_err"] for r in nms_rows.values()),
          "ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
          "bound_by": n["bound_by"], "library_ms": None,
          "at": "logits (8,120,12) fp32"},
+        {"name": "group_norm_fused", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/groupnorm.cu",
+         "replaces": "etpnav_tpu/ops/pallas_groupnorm.py:57 "
+                     "group_norm_fused",
+         "launches": res_f["counts"]["group_norm_fused"],
+         "max_abs_err": max(r["max_abs_err"] for r in gn_rows.values()),
+         "ms": g["ms"], "plain_ms": g["plain_ms"],
+         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+         "library_ms": g["library_ms"],
+         "at": f"{gn_key} at B=96 (the trunk's largest bound); library_ms "
+               "is F.group_norm (GN only, no ReLU/residual)",
+         "ms_per_perceive": sum(r["ms"] * r["per_perceive"]
+                                for r in gn_bf16.values()),
+         "plain_ms_per_perceive": sum(r["plain_ms"] * r["per_perceive"]
+                                      for r in gn_bf16.values())},
+        {"name": "prenorm_attention", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/prenorm_attention.cu",
+         "replaces": "etpnav_tpu/ops/pallas_attention.py:559 "
+                     "fused_prenorm_attention_v2; :456 "
+                     "fused_prenorm_attention",
+         "launches": res_f["counts"]["prenorm_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in pre_rows.values()),
+         "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+         "bound_by": p["bound_by"], "library_ms": None,
+         "at": "x (96,50,768) bf16",
+         "unfused_half_block_ms": p["unfused_half_block_ms"]},
     ]
+    log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
+        f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 Mirrors the layout of the JAX package `etpnav_tpu` (config, ops, models,
 graph, training, serving) so each module's counterpart is easy to find.
-The attention and heatmap-NMS kernels are CUDA C++ for Hopper
-(`csrc/`), built with nvcc at first use; every other op is plain
-PyTorch. Entry points run on the GPU unless the caller passes
+The attention, heatmap-NMS, GroupNorm and pre-norm attention-block
+kernels are CUDA C++ for Hopper (`csrc/`), built with nvcc at first use;
+every other op is plain PyTorch. Entry points run on the GPU unless the caller passes
 `device="cpu"`, where each kernel wrapper runs its plain version.
 """
 

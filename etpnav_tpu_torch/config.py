@@ -3,10 +3,10 @@
 The fields that the port's serving path reads, with the same names,
 defaults and factories as `etpnav_tpu/config.py`, so a configuration
 reads the same in both packages. Switches that only the JAX package can
-act on (rematerialisation, the Pallas GroupNorm gate, the bf16
-attention-probs chain, dropout PRNG choices) and the sections of the
-training, pretraining, DAgger, evaluation and data-path tooling are not
-here: each comes back with the slice that reads it. Several comments
+act on (rematerialisation, the bf16 attention-probs chain, dropout PRNG
+choices) and the sections of the training, pretraining, DAgger,
+evaluation and data-path tooling are not here: each comes back with the
+slice that reads it. Several comments
 below record measurements taken on a TPU for the JAX package; they
 explain the defaults there and say nothing about the port's speed on a
 GPU.
@@ -105,6 +105,12 @@ class ClipConfig:
     heads: int = 12
     output_dim: int = 512
     layer_norm_eps: float = 1e-5
+    # run the attention half of blocks 1..L-1 (LN, q/k/v projections,
+    # attention, output projection, residual) as one op, K-PRENORM
+    # (ops/fused_prenorm.py); the port's form of the JAX package's module
+    # switch clip_vit.USE_FUSED_BLOCK. The cls-row last block stays
+    # unfused, as there.
+    use_fused_block: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +128,10 @@ class DepthEncoderConfig:
     layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
     expansion: int = 4
     output_size: int = 2048     # flattened target: channels * spatial^2
+    # one-pass GroupNorm(+ReLU+residual) kernel, K-GN
+    # (ops/fused_groupnorm.py): stats + normalize + epilogue in one launch
+    # per norm instead of PyTorch's chain of ~10 elementwise kernels.
+    use_fused_gn: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

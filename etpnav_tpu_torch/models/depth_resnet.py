@@ -1,12 +1,15 @@
 """DD-PPO depth encoder: habitat-style GroupNorm ResNet-50 (counterpart
 of `etpnav_tpu/models/depth_resnet.py`).
 
-Runs NCHW with `F.conv2d` (weights OIHW); the public `encode_depth`
-keeps the JAX package's NHWC layout at its input and output. GroupNorm
-is the JAX package's two-pass form, fp32 moments with the variance as
-E[x^2] - E[x]^2 on per-group means, which `F.group_norm` does not
-compute the same way. The JAX package's `use_fused_gn` is False by
-default, so its Pallas GroupNorm kernel is not on this path.
+Runs NCHW tensors through `F.conv2d` (weights OIHW); the public
+`encode_depth` keeps the JAX package's NHWC layout at its input and
+output. The NCHW view of the NHWC input is channels_last in memory, and
+the convolutions keep that memory format. GroupNorm is the JAX package's
+form, fp32 moments with the variance as E[x^2] - E[x]^2 on per-group
+means, which `F.group_norm` does not compute the same way. With
+`DepthEncoderConfig.use_fused_gn` every norm, with its ReLU and the
+bottleneck's residual add, is one K-GN launch (`ops/fused_groupnorm.py`):
+54 per call at R2R depth.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from etpnav_tpu_torch.config import DepthEncoderConfig
+from etpnav_tpu_torch.ops.fused_groupnorm import group_norm_fused
 
 
 class Conv(nn.Module):
@@ -87,7 +91,18 @@ class Bottleneck(nn.Module):
 
 
 def _bottleneck(params: Bottleneck, x: torch.Tensor, stride: int,
-                ngroups: int) -> torch.Tensor:
+                ngroups: int, fused_gn: bool = False) -> torch.Tensor:
+    if fused_gn:
+        h = group_norm_fused(params.gn1, conv2d(params.conv1, x), ngroups,
+                             relu=True)
+        h = group_norm_fused(params.gn2, conv2d(params.conv2, h, stride, 1),
+                             ngroups, relu=True)
+        if hasattr(params, "down_conv"):
+            x = group_norm_fused(params.down_gn,
+                                 conv2d(params.down_conv, x, stride), ngroups)
+        # gn3 + residual add + ReLU in one launch
+        return group_norm_fused(params.gn3, conv2d(params.conv3, h), ngroups,
+                                relu=True, residual=x)
     h = F.relu(group_norm(params.gn1, conv2d(params.conv1, x), ngroups))
     h = F.relu(group_norm(params.gn2, conv2d(params.conv2, h, stride, 1),
                           ngroups))
@@ -124,15 +139,22 @@ def encode_depth(params: DepthParams, cfg: DepthEncoderConfig,
                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """depth (B, H, W, 1) in [0,1] -> (B, s, s, C) fp32 spatial features
     (s = H/32; (4, 4, 128) at H=128)."""
+    fused = cfg.use_fused_gn
+    if fused:
+        def gn_relu(p, x, g):
+            return group_norm_fused(p, x, g, relu=True)
+    else:
+        def gn_relu(p, x, g):
+            return F.relu(group_norm(p, x, g))
     x = depth.to(dtype).permute(0, 3, 1, 2)
     x = conv2d(params.stem_conv, x, 2, 3)
-    x = F.relu(group_norm(params.stem_gn, x, cfg.ngroups))
+    x = gn_relu(params.stem_gn, x, cfg.ngroups)
     x = F.max_pool2d(x, 3, 2, 1)
     for li in range(4):
         stride = 1 if li == 0 else 2
         for bi, bparams in enumerate(getattr(params, f"layer{li + 1}")):
             x = _bottleneck(bparams, x, stride if bi == 0 else 1,
-                            cfg.ngroups)
+                            cfg.ngroups, fused_gn=fused)
     x = conv2d(params.compression_conv, x, 1, 1)
-    x = F.relu(group_norm(params.compression_gn, x, 1))
+    x = gn_relu(params.compression_gn, x, 1)
     return x.permute(0, 2, 3, 1).float()

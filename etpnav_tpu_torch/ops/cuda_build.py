@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("attention", "heatmap_nms")
+SOURCES = ("attention", "heatmap_nms", "groupnorm", "prenorm_attention")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

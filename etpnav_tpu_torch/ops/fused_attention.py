@@ -2,8 +2,12 @@
 version.
 
 Replaces the Pallas TPU kernels `fused_attention_nhd`,
-`fused_attention` and the forward of `fused_bias_attention`
-(`etpnav_tpu/ops/pallas_attention.py`). The CUDA C++ source,
+`fused_attention`, `fused_attention_xbatch` and the forward of
+`fused_bias_attention` (`etpnav_tpu/ops/pallas_attention.py`).
+`fused_attention_xbatch` is per-sample unbiased attention on the natural
+(B, L, H*hd) layout, K-ATT's function at the CLIP shape: its
+block-diagonal cross-batch GEMM only fills the TPU's 128x128 matrix unit
+and is not carried over. The CUDA C++ source,
 `csrc/attention.cu`, says what bounds the kernel on an H100 and what
 its design does about it.
 
@@ -61,6 +65,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 logits, max and sum; unnormalised p rounded to the input dtype
     before p.v (fp32 accumulation); the division by the sum last."""
     attention_plain_calls.add()
+    return softmax_attention(q, k, v, bias, scale)
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: Optional[torch.Tensor], scale: float
+                      ) -> torch.Tensor:
+    """`attention_plain`'s arithmetic, uncounted, for the plain versions
+    of other kernels that attend the same way."""
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale

@@ -220,6 +220,9 @@ def test_port_imports_no_jax():
     bad = []
     files = _port_files()
     assert len(files) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"etpnav_tpu_torch/ops/fused_groupnorm.py",
+            "etpnav_tpu_torch/ops/fused_prenorm.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
