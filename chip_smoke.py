@@ -17,6 +17,14 @@ Phases, each reported on its own lines:
      GroupNorm shape of the fused depth trunk at B = 96 (recorded from one
      fused trunk pass on the card); K-PRENORM at the CLIP shape
      (96, 50, 768) beside the port's unfused CLIP attention half-block;
+     K-ATT with attention dropout 0.1 at the learn step's shapes, and its
+     p_drop = 0 launch with the row log-sum-exp bit for bit against the
+     serving launch;
+  3c. K-ATT-BWD against its plain version at the learn step's four
+     attention shapes (text, pano, cross and graph self-attention at
+     G = 96, B*T = 160), fp32 and bf16, with and without dropout 0.1,
+     d(bias) for the graph self-attention; K-ATT + K-ATT-BWD beside SDPA
+     forward + backward;
   4. the serving slice: `NavServer(r2r_config(), Agent(device="cuda"),
      max_batch=8)` from seeded random weights keeps 8 sessions live until
      at least 40 steps are served; every launch count must be exactly
@@ -30,6 +38,16 @@ Phases, each reported on its own lines:
   5. slice parity: `perceive` + `score_navigation` at full R2R width in
      fp32 on the card (kernels) against the CPU (plain versions);
   5b. the same for the fused configuration;
+  7. IL training: `FinetuneTrainer(r2r_config(), GeometricNavEnv(8),
+     device="cuda")` trains 2 iterations (rollout + bucketed learn step);
+     exact launch counts (the rollout's programs as in phase 4, and 19
+     K-ATT + 19 K-ATT-BWD per learn step), no plain call, a finite loss,
+     trained parameters moved and the frozen towers did not; the learn
+     step p50 at (T20, G64) and (T20, G96), the peak memory, and one
+     profiled learn step;
+  7b. the learn step's loss and every planner gradient at full R2R width
+     in fp32 with dropout off, card (kernels) against CPU (plain
+     versions), on 2 envs x 3 steps of the recorded interval;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -220,6 +238,216 @@ def check_attention(card: str) -> dict:
                 f"err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                 f"[{card}]")
+    return rows
+
+
+def learn_attention_cases(dev, G: int = 96, BT: int = 160, B: int = 8):
+    """(name, q, k, v, bias) of the learn step's four attentions at
+    r2r_config (B = 8 envs, T = 20 steps: B*T = 160 replay rows; 80 text
+    tokens, 17 pano tokens, G graph slots): the text encoder, the pano
+    encoder, the navigation cross-attention into the text and the graph
+    self-attention with the sprel bias, whose gradient the learn step
+    takes."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def natural(n, L, H=12, hd=64):
+        x = torch.randn(n, L, H * hd, generator=g, device=dev) * 0.5
+        return x.view(n, L, H, hd).transpose(1, 2)
+
+    def pad_bias(n, L, keep):
+        mask = torch.arange(L, device=dev)[None] < keep
+        return ((~mask).float() * -10000.0).expand(n, L)[:, None, None, :]
+
+    sprel = torch.rand(BT, G, G, generator=g, device=dev) * -2.0
+    graph_bias = (pad_bias(BT, G, G * 2 // 3) + sprel[:, None]).contiguous()
+    return [
+        ("text", natural(B, 80), natural(B, 80), natural(B, 80),
+         pad_bias(B, 80, 30)),
+        ("pano", natural(BT, 17), natural(BT, 17), natural(BT, 17),
+         pad_bias(BT, 17, 11)),
+        (f"cross_g{G}", natural(BT, G), natural(BT, 80), natural(BT, 80),
+         pad_bias(BT, 80, 30)),
+        (f"graph_g{G}", natural(BT, G), natural(BT, G), natural(BT, G),
+         graph_bias),
+    ]
+
+
+def check_attention_dropout(card: str) -> dict:
+    """K-ATT with attention dropout 0.1 against its plain version (the same
+    Philox bits) at the learn step's shapes, and the launch the learn step
+    makes at p_drop = 0 (row lse requested) bit for bit against the serving
+    launch (no lse). Times with dropout and the lse: the kernel, the plain
+    version, SDPA with the same float mask and dropout rate, the bound."""
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.ops.fused_attention import (
+        attention_fwd,
+        attention_plain,
+        draw_seed_offset,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for name, q32, k32, v32, bias in learn_attention_cases(dev):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            scale = 0.125
+            serve_out = attention_fwd(q, k, v, bias, scale)
+            train_out, lse = attention_fwd(q, k, v, bias, scale,
+                                           return_lse=True)
+            torch.cuda.synchronize()
+            if not torch.equal(serve_out, train_out):
+                raise AssertionError(f"K-ATT {name} {dtype}: p_drop=0 with "
+                                     "lse differs from the serving launch")
+            _, lse_want = attention_plain(q, k, v, bias, scale,
+                                          return_lse=True)
+            lse_err = (lse - lse_want).abs().max().item()
+            if lse_err > 1e-4:
+                raise AssertionError(f"K-ATT {name} {dtype}: lse err "
+                                     f"{lse_err}")
+            so = draw_seed_offset(gen, dev)
+            got = attention_fwd(q, k, v, bias, scale, 0.1, so)
+            want = attention_plain(q, k, v, bias, scale, 0.1, so)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), f"{name}: not finite"
+            err = (got.float() - want.float()).abs().max().item()
+            if err > TOL[dtype]:
+                raise AssertionError(f"K-ATT dropout {name} {dtype}: max abs"
+                                     f" err {err} > {TOL[dtype]}")
+            ms = cuda_ms(lambda: attention_fwd(q, k, v, bias, scale, 0.1,
+                                               so, return_lse=True))
+            plain_ms = cuda_ms(lambda: attention_plain(
+                q, k, v, bias, scale, 0.1, so, return_lse=True), iters=5,
+                warmup=1)
+            mask = bias.to(dtype)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=0.1, scale=scale))
+            nbytes, flops = attention_work(q, k, v, bias)
+            b_ms, b_by = bound_ms(nbytes + 4 * lse.numel(), flops, dtype)
+            key = f"{name}/{str(dtype).split('.')[-1]}"
+            rows[key] = {"shape": [list(q.shape), list(k.shape)],
+                         "max_abs_err": err, "lse_err": lse_err, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+            log(f"K-ATT dropout 0.1 {key:22s} q{tuple(q.shape)} "
+                f"k{tuple(k.shape)} err={err:.3g} lse_err={lse_err:.3g} "
+                f"ms={ms:.4f} (with lse) plain_ms={plain_ms:.4f} "
+                f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+                f"p_drop=0 bitwise = serving [{card}]")
+    return rows
+
+
+def bwd_tol(want: torch.Tensor, dtype) -> float:
+    """Kernel against plain backward on the card: fp32 results differ only
+    in the order of their fp32 sums (up to Lq or Lk products of O(1)
+    terms), 1e-5 of the largest magnitude; bf16 gradients are the same
+    fp32 values rounded once, so two bf16 ulps of the largest."""
+    if dtype == torch.bfloat16 and want.dtype == torch.bfloat16:
+        return bf16_tol(want)
+    return 1e-5 * want.float().abs().max().item() + 1e-6
+
+
+def attention_bwd_work(q, k, bias, dropout: bool, dbias: bool):
+    B, H, Lq, hd = q.shape
+    Lk = k.shape[2]
+    isz = q.element_size()
+    # read q, o, dO and k, v; write dq and dk, dv; read lse; the bias
+    # (its stored elements) read once; dbias written once (fp32)
+    nbytes = isz * (3 * B * H * Lq * hd + 2 * B * H * Lk * hd
+                    + B * H * Lq * hd + 2 * B * H * Lk * hd)
+    nbytes += 4 * B * H * Lq
+    if bias is not None:
+        nbytes += 4 * bias.numel()
+    if dbias:
+        nbytes += 4 * B * Lq * Lk
+    # five products of B*H*Lq*Lk*hd multiply-adds each
+    return nbytes, 5 * 2.0 * B * H * Lq * Lk * hd
+
+
+def check_attention_bwd(card: str, G: int = 96) -> dict:
+    """K-ATT-BWD against its plain version on the card at the learn step's
+    four attention shapes, fp32 and bf16, with and without dropout 0.1;
+    d(bias) where the learn step takes it (graph self-attention). Times:
+    the kernel, the plain version, the bound, and K-ATT + K-ATT-BWD
+    (forward + backward through AttentionFn) beside SDPA forward +
+    backward with the same float mask and dropout rate."""
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.ops.fused_attention import (
+        AttentionFn,
+        attention_bwd,
+        attention_bwd_plain,
+        attention_fwd,
+        draw_seed_offset,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = {}
+    for name, q32, k32, v32, bias in learn_attention_cases(dev, G=G):
+        dbias = name.startswith("graph")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            scale = 0.125
+            dout = (torch.randn(q.shape, generator=gen, device=dev)
+                    .to(dtype))
+            for p_drop in (0.0, 0.1):
+                so = draw_seed_offset(gen, dev) if p_drop else None
+                out, lse = attention_fwd(q, k, v, bias, scale, p_drop, so,
+                                         return_lse=True)
+                args = (q, k, v, bias, out, lse, dout, scale, p_drop, so,
+                        dbias)
+                got = attention_bwd(*args)
+                want = attention_bwd_plain(*args)
+                torch.cuda.synchronize()
+                errs = {}
+                for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got,
+                                       want):
+                    if b is None:
+                        continue
+                    assert torch.isfinite(a.float()).all(), (name, gname)
+                    err = (a.float() - b.float()).abs().max().item()
+                    tol = bwd_tol(b, dtype)
+                    if err > tol:
+                        raise AssertionError(
+                            f"K-ATT-BWD {name} {dtype} p_drop={p_drop} "
+                            f"{gname}: max abs err {err} > {tol}")
+                    errs[gname] = err
+                ms = cuda_ms(lambda: attention_bwd(*args), iters=20)
+                plain_ms = cuda_ms(lambda: attention_bwd_plain(*args),
+                                   iters=5, warmup=1)
+                qg, kg, vg = (t.detach().clone().requires_grad_()
+                              for t in (q, k, v))
+                bg = bias.detach().clone().requires_grad_(dbias)
+
+                def ours():
+                    o = AttentionFn.apply(qg, kg, vg, bg, scale, p_drop, so)
+                    o.backward(dout)
+
+                mask = bg.expand(q.shape[0], 1, q.shape[2], k.shape[2])
+
+                def sdpa():
+                    o = F.scaled_dot_product_attention(
+                        qg, kg, vg, attn_mask=mask.to(dtype),
+                        dropout_p=p_drop, scale=scale)
+                    o.backward(dout)
+
+                pair_ms = cuda_ms(ours, iters=10)
+                lib_ms = cuda_ms(sdpa, iters=10)
+                nbytes, flops = attention_bwd_work(q, k, bias, bool(p_drop),
+                                                   dbias)
+                b_ms, b_by = bound_ms(nbytes, flops, dtype)
+                key = (f"{name}/{str(dtype).split('.')[-1]}"
+                       f"/p{p_drop}{'/dbias' if dbias else ''}")
+                rows[key] = {"shape": [list(q.shape), list(k.shape)],
+                             "max_abs_err": max(errs.values()),
+                             "errs": errs, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "fwd_bwd_ms": pair_ms, "library_ms": lib_ms}
+                log(f"K-ATT-BWD {key:30s} q{tuple(q.shape)} "
+                    f"k{tuple(k.shape)} errs={json.dumps(errs)} "
+                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) fwd+bwd ms={pair_ms:.4f} "
+                    f"sdpa fwd+bwd ms={lib_ms:.4f} [{card}]")
     return rows
 
 
@@ -638,6 +866,240 @@ def slice_parity(card: str, cfg, params, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the IL training step
+# ---------------------------------------------------------------------------
+
+# K-ATT and K-ATT-BWD launches per learn step at r2r_config: 9 text +
+# 2 pano + 4 x (cross + graph self-attention)
+LEARN_ATTENTIONS = 19
+
+
+def geometric_envs(cfg, n: int, seed: int):
+    from etpnav_tpu_torch.env.geometric import GeometricNavEnv
+    return GeometricNavEnv(
+        n, seed=seed, vocab_size=cfg.planner.vocab_size,
+        max_instr_len=cfg.il.max_text_len, image_size=cfg.clip.image_size,
+        depth_size=cfg.depth.input_size, pad_id=cfg.planner.pad_token_id)
+
+
+def counted(fn, calls: collections.Counter, name: str):
+    def wrapper(*a, **kw):
+        calls[name] += 1
+        return fn(*a, **kw)
+    return wrapper
+
+
+def train_phase(card: str, cfg, counters) -> dict:
+    """`FinetuneTrainer(r2r_config(), GeometricNavEnv(8), device="cuda")`
+    trains 2 iterations (rollout + bucketed learn step). Exact launch
+    counts, no plain call, a finite loss, trained parameters moved and
+    the frozen towers did not; then the learn-step p50 at (T20, G64) and
+    (T20, G96), the peak memory, and one profiled learn step."""
+    from etpnav_tpu_torch.training.finetune import (
+        FinetuneTrainer,
+        learn_step,
+        slice_record,
+    )
+    t0 = time.perf_counter()
+    tr = FinetuneTrainer(cfg, geometric_envs(cfg, 8, seed=0), seed=0,
+                         device="cuda")
+    log(f"train: trainer at r2r_config in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    planner = tr.params.planner
+    before = {n: p.detach().clone() for n, p in planner.named_parameters()}
+    frozen = {n: p.detach().clone() for n, p in tr.params.named_parameters()
+              if not n.startswith("planner.")}
+    calls = collections.Counter()
+    records = []
+    agent, engine = tr.agent, tr.engine
+    agent.perceive = counted(agent.perceive, calls, "perceive")
+    agent.score_navigation = counted(agent.score_navigation, calls,
+                                     "navigation")
+    agent.encode_text = counted(agent.encode_text, calls, "text")
+    run = engine.run
+
+    def recording_run(*a, **kw):
+        rec = run(*a, **kw)
+        records.append(rec)
+        return rec
+    engine.run = recording_run
+    for c in counters.values():
+        c.reset()
+    iters = 2
+    logs = tr.train(iters)
+    torch.cuda.synchronize()
+    counts = {name: c.value for name, c in counters.items()}
+    del agent.perceive, agent.score_navigation, agent.encode_text, engine.run
+    # the rollout's programs launch what serving's do (PER_CALL); each
+    # learn step LEARN_ATTENTIONS K-ATT and K-ATT-BWD
+    per = PER_CALL["default"]
+    want = {k: sum(per[prog].get(k, 0) * calls[prog] for prog in per)
+            for k in counts}
+    want["attention_fwd"] += LEARN_ATTENTIONS * iters
+    want["attention_bwd"] += LEARN_ATTENTIONS * iters
+    if counts != want:
+        raise AssertionError(f"train: launches {counts} != {want} for "
+                             f"{dict(calls)} and {iters} learn steps")
+    if not np.isfinite(tr.logs["IL_loss"]).all():
+        raise AssertionError(f"train: loss {tr.logs['IL_loss']}")
+    moved = still = 0
+    for n, p in planner.named_parameters():
+        if not torch.equal(p, before[n]):
+            moved += 1
+        elif p.grad is not None and p.grad.abs().max() > 0:
+            raise AssertionError(f"train: {n} has a gradient but did not "
+                                 "move")
+        else:
+            still += 1
+    for n, p in tr.params.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            raise AssertionError(f"train: frozen {n} moved")
+    log(f"train: {iters} iterations, loss {tr.logs['IL_loss']}, rollout s "
+        f"{tr.logs['rollout_s']}, learn s {tr.logs['learn_s']}, buckets "
+        f"{tr.bucket_counts}; launches exact {counts} for {dict(calls)}; "
+        f"{moved} planner tensors moved, {still} without gradient did not, "
+        f"{len(frozen)} frozen tower tensors unchanged [{card}]")
+
+    # learn-step p50 at the two largest train buckets, from the last
+    # recorded interval (full T = 20, G = 96; sliced to G = 64, where a
+    # teacher label past slot 64 is ignored: the timing needs the shape)
+    rec = records[-1]
+    times = {}
+    peak = {}
+    for T, G in ((20, 64), (20, 96)):
+        cut = slice_record(rec, T, G)
+        cut = dataclasses.replace(cut, teacher=np.where(
+            cut.teacher < G, cut.teacher, -100).astype(np.int32))
+        batch = tr.batch(cut)
+        float(learn_step(planner, tr.optimizer, cfg, batch, tr.generator))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(6):
+            t1 = time.perf_counter()
+            float(learn_step(planner, tr.optimizer, cfg, batch,
+                             tr.generator))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        times[f"T{T}_G{G}"] = {"p50_ms": statistics.median(ms),
+                               "min_ms": min(ms), "n": len(ms)}
+        peak[f"T{T}_G{G}"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_learn_step(card, tr, batch)
+    res = {"loss": tr.logs["IL_loss"], "rollout_s": tr.logs["rollout_s"],
+           "learn_s": tr.logs["learn_s"],
+           "buckets": {f"T{t}_G{g}": n for (t, g), n
+                       in tr.bucket_counts.items()},
+           "calls": dict(calls), "counts": counts,
+           "learn_step": times, "peak_gib": peak, "profile": prof,
+           "record_demand": {"T": int(rec.step_valid.any(0).sum()),
+                             "G": int(rec.gmap_mask.sum(-1).max())}}
+    log(f"train: {json.dumps(res)} [{card}]")
+    return res, tr, rec
+
+
+def profile_learn_step(card: str, tr, batch) -> dict:
+    """Device time by kernel of one learn step, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from etpnav_tpu_torch.training.finetune import learn_step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(learn_step(tr.params.planner, tr.optimizer, tr.cfg, batch,
+                         tr.generator))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the optimizer's profiler range ("Optimizer.step#AdamW.step") shows
+    # on the device timeline too, spanning kernels counted on their own
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not e.key.startswith("Optimizer.")]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
+    log(f"profile learn step (T20, G96): wall {wall_ms:.2f} ms (profiled), "
+        f"device busy {dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in ev)} device ops [{card}]")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "device_ops": sum(e.count for e in ev),
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in top[:6]]}
+
+
+# card (fp32, kernels) against CPU (fp32, plain versions): the learn
+# step's loss and every planner gradient, max |diff| <= LEARN_REL_TOL *
+# max |CPU gradient| + 1e-6 per tensor. fp32 sums in another order
+# through the forward and backward of 9 + 2 + 4 BERT layers at full
+# width, the aggregation scatter and the AdamW-free gradient itself.
+LEARN_REL_TOL = 2e-4
+
+
+def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
+    """Phase 7b: compute_il_loss and its gradients at full R2R width in
+    fp32 with dropout off, on the card (kernels) and on the CPU (plain
+    versions), for 2 envs x 3 steps of the recorded interval."""
+    from etpnav_tpu_torch.training.finetune import (
+        compute_il_loss,
+        record_to_batch,
+        slice_record,
+    )
+    small = slice_record(rec, 3, 32)
+    small = dataclasses.replace(small, **{
+        f.name: getattr(small, f.name)[:2]
+        for f in dataclasses.fields(small)})
+    gpu_planner = tr.params.planner
+    cpu_planner = copy.deepcopy(gpu_planner).cpu()
+    out = {}
+    for name, pl, dev in (("cpu", cpu_planner, "cpu"),
+                          ("gpu", gpu_planner, "cuda")):
+        pl.zero_grad(set_to_none=True)
+        before = {k: c.value for k, c in counters.items()}
+        loss = compute_il_loss(pl, cfg32, record_to_batch(small, dev))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = {k: c.value - before[k] for k, c in counters.items()}
+        out[name] = (loss.item(), {n: p.grad.detach().cpu()
+                                   for n, p in pl.named_parameters()
+                                   if p.grad is not None}, launches)
+    want_l = {k: 0 for k in counters}
+    want_l["attention_fwd"] = want_l["attention_bwd"] = LEARN_ATTENTIONS
+    if out["gpu"][2] != want_l:
+        raise AssertionError(f"learn parity: card launches {out['gpu'][2]} "
+                             f"!= {want_l}")
+    l_cpu, g_cpu, _ = out["cpu"]
+    l_gpu, g_gpu, _ = out["gpu"]
+    loss_rel = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-12)
+    if loss_rel > LEARN_REL_TOL:
+        raise AssertionError(f"learn parity: loss {l_gpu} vs {l_cpu}")
+    if set(g_cpu) != set(g_gpu):
+        raise AssertionError("learn parity: gradient sets differ")
+    # the share of its tolerance each tensor uses, and the relative error
+    # of the tensors whose gradient is not zero in exact arithmetic (the
+    # key projections' biases add a per-row constant to the logits, which
+    # the softmax cancels: their gradients are rounding noise ~1e-7)
+    share, rel = (-1.0, ""), (-1.0, "")
+    for n, gc in g_cpu.items():
+        top = gc.abs().max().item()
+        err = (g_gpu[n] - gc).abs().max().item()
+        tol = LEARN_REL_TOL * top + 1e-6
+        if err > tol:
+            raise AssertionError(f"learn parity: grad {n} err {err} "
+                                 f"(max |g| {top})")
+        share = max(share, (err / tol, n))
+        if top > 1e-4:
+            rel = max(rel, (err / top, n))
+    res = {"loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": loss_rel,
+           "grad_tensors": len(g_cpu), "worst_tol_share": share[0],
+           "worst_tol_share_grad": share[1], "worst_grad_rel": rel[0],
+           "worst_grad": rel[1], "launches": out["gpu"][2]}
+    log(f"learn parity (fp32, 2 envs x 3 steps, card vs CPU): "
+        f"{json.dumps(res)} [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 # launches per call of each served program: K-ATT 16 per perceive (11
 # CLIP blocks, the cls row, 2 waypoint, 2 pano), 8 per navigation scoring
@@ -697,6 +1159,9 @@ def perceive_ab(card: str, cfgs: dict, params, rounds: int = 8) -> dict:
     return res
 
 
+T0 = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -736,6 +1201,10 @@ def main() -> int:
     # phase 3
     cfg = r2r_config()
     att_rows = check_attention(card)
+    drop_rows = check_attention_dropout(card)
+    # phase 3c
+    bwd_rows = check_attention_bwd(card)
+    log(f"phase 3c done at {time.perf_counter() - T0:.0f} s")
     nms_rows = check_nms(card)
     gn_calls = trace_gn_calls(cfg, batch=8 * 12)
     log(f"K-GN calls of one fused trunk pass at B=96: "
@@ -756,7 +1225,11 @@ def main() -> int:
                 "prenorm_attention":
                     fused_prenorm.prenorm_attention_launches,
                 "prenorm_attention_plain":
-                    fused_prenorm.prenorm_attention_plain_calls}
+                    fused_prenorm.prenorm_attention_plain_calls,
+                "attention_bwd": fused_attention.attention_bwd_launches,
+                "attention_bwd_plain":
+                    fused_attention.attention_bwd_plain_calls}
+    log(f"phase 3 done at {time.perf_counter() - T0:.0f} s")
     # phase 4
     t0 = time.perf_counter()
     params = init_agent_params(cfg, seed=0)
@@ -771,6 +1244,7 @@ def main() -> int:
     ab = perceive_ab(card, {"default": cfg, "fused": fcfg}, params)
     del params
     torch.cuda.empty_cache()
+    log(f"phase 4b done at {time.perf_counter() - T0:.0f} s")
     # phase 5
     cfg32 = r2r_config(planner=dataclasses.replace(cfg.planner,
                                                   use_bf16=False))
@@ -782,6 +1256,15 @@ def main() -> int:
     if got != want:
         raise AssertionError(f"parity fused: perceive launches {got} != "
                              f"{want}")
+    log(f"phase 5b done at {time.perf_counter() - T0:.0f} s")
+    # phase 7
+    train_res, trainer, rec = train_phase(card, cfg, counters)
+    log(f"phase 7 done at {time.perf_counter() - T0:.0f} s")
+    # phase 7b
+    learn_par = learn_parity(card, cfg32, trainer, rec, counters)
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"phase 7b done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -790,6 +1273,7 @@ def main() -> int:
     gn_key = max(gn_bf16, key=lambda k: gn_bf16[k]["bound_ms"])
     g = gn_bf16[gn_key]
     p = pre_rows["bfloat16"]
+    bw = bwd_rows["graph_g96/bfloat16/p0.1/dbias"]
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
@@ -836,9 +1320,30 @@ def main() -> int:
          "bound_by": p["bound_by"], "library_ms": None,
          "at": "x (96,50,768) bf16",
          "unfused_half_block_ms": p["unfused_half_block_ms"]},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
+                     "fused_bias_attention custom VJP (_fused_bwd :382)",
+         "launches": train_res["counts"]["attention_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+         "ms": bw["ms"], "plain_ms": bw["plain_ms"],
+         "bound_ms": bw["bound_ms"], "bound_by": bw["bound_by"],
+         "library_ms": bw["library_ms"],
+         "at": "graph self-attention q/k/v (160,12,96,64) bf16 + sprel "
+               "bias, dropout 0.1, dbias; library_ms is SDPA forward + "
+               "backward, beside fwd_bwd_ms (K-ATT + K-ATT-BWD)",
+         "fwd_bwd_ms": bw["fwd_bwd_ms"]},
     ]
     log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
         f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")
+    ls = train_res["learn_step"]
+    log(f"learn step p50 (T20, G64) {ls['T20_G64']['p50_ms']:.2f} ms, "
+        f"(T20, G96) {ls['T20_G96']['p50_ms']:.2f} ms; peak "
+        f"{train_res['peak_gib']['T20_G96']:.2f} GiB; rollout s per "
+        f"interval {train_res['rollout_s']}; learn parity worst grad rel "
+        f"{learn_par['worst_grad_rel']:.3g}, tolerance share "
+        f"{learn_par['worst_tol_share']:.3g}; K-ATT dropout rows "
+        f"{len(drop_rows)}; total {time.perf_counter() - T0:.0f} s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Frozen dataclass configuration tree (the port's own copy).
 
-The fields that the port's serving path reads, with the same names,
-defaults and factories as `etpnav_tpu/config.py`, so a configuration
-reads the same in both packages. Switches that only the JAX package can
-act on (rematerialisation, the bf16 attention-probs chain, dropout PRNG
-choices) and the sections of the training, pretraining, DAgger,
-evaluation and data-path tooling are not here: each comes back with the
-slice that reads it. Several comments
+The fields that the port's serving path and IL training step read, with
+the same names, defaults and factories as `etpnav_tpu/config.py`, so a
+configuration reads the same in both packages. Switches that only the
+JAX package can act on (rematerialisation `remat`/`remat_nav`, the bf16
+attention-probs chain `attn_probs_bf16`, the dropout PRNG choices
+`rng_impl`/`dropout_bits8`, `agg_dense_device`) and the sections of the
+pretraining, DAgger, evaluation and data-path tooling are not here: each
+comes back with the slice that reads it. Several comments
 below record measurements taken on a TPU for the JAX package; they
 explain the defaults there and say nothing about the port's speed on a
 GPU.
@@ -39,6 +40,10 @@ class PlannerConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     lang_layer_norm_eps: float = 1e-12   # xlm-roberta uses 1e-5
+    # training-time dropout of the planner (BERT hidden / attention
+    # probabilities); the frozen waypoint TRM takes none
+    hidden_dropout: float = 0.1
+    attn_dropout: float = 0.1
     pad_token_id: int = 0                # xlm-roberta uses 1
 
     # vision / fusion parts always use eps 1e-12 in the reference
@@ -146,13 +151,41 @@ class GraphConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ILConfig:
-    """The episode knobs of run_r2r/iter_train.yaml that serving reads."""
+    """Schedule-sampling IL fine-tune knobs (run_r2r/iter_train.yaml)."""
 
+    iters: int = 15000
+    lr: float = 1e-5
     max_traj_len: int = 20       # max planner steps per episode
+    ml_weight: float = 1.0
+    sample_ratio: float = 0.75
+    decay_interval: int = 3000
+    expert_policy: str = "spl"   # or 'ndtw'
+    waypoint_aug: bool = True
+    ghost_aug: float = 0.0
     loc_noise: float = 0.5       # ghost merge radius (m)
     back_algo: str = "teleport"  # or 'control'
     tryout: bool = True
     max_text_len: int = 80
+    success_distance: float = 3.0
+    stop_distance: float = 1.5   # teacher stop trigger (ss_trainer_ETP.py:283)
+    # MODEL.fix_{lang,pano}_embedding: freeze the text embeddings + the
+    # language encoder / the pano ImageEmbeddings during fine-tuning
+    # (vilmodel_cmt.py:675-682): those parameters take no gradient and
+    # stay out of the optimizer, so they neither move nor decay
+    fix_lang_embedding: bool = False
+    fix_pano_embedding: bool = False
+    # IL.is_requeue: resume from the newest checkpoint in the checkpoint
+    # directory (ss_trainer_ETP.py:216-236)
+    is_requeue: bool = False
+    # Bucketed replay: before the learn step, slice the recorded interval's
+    # trajectory axis to the smallest bucket that holds the longest live
+    # episode, and the graph axis to the smallest bucket that holds the
+    # largest emitted slot count. Slicing is exact (slots are
+    # prefix-ordered, steps beyond the last valid one are -100-teacher
+    # padding): it removes padding compute, not data. () = always the
+    # record's full (max_traj_len, max_gmap_len) shape.
+    train_traj_buckets: Tuple[int, ...] = ()
+    train_gmap_buckets: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +217,9 @@ def r2r_config(**overrides) -> ExperimentConfig:
     graph_utils.py:193-257). 96 holds every measured episode."""
     planner = PlannerConfig(max_gmap_len=96,
                             gmap_len_buckets=(16, 32, 48, 64))
-    cfg = ExperimentConfig(planner=planner)
+    il = ILConfig(train_traj_buckets=(12, 20),
+                  train_gmap_buckets=(48, 64, 96))
+    cfg = ExperimentConfig(planner=planner, il=il)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -199,7 +234,9 @@ def rxr_config(**overrides) -> ExperimentConfig:
         max_gmap_len=96,                     # see r2r_config docstring
         gmap_len_buckets=(16, 32, 48, 64),
     )
-    il = ILConfig(max_text_len=200)
+    il = ILConfig(iters=20000, lr=1.5e-5, expert_policy="ndtw",
+                  max_text_len=200, train_traj_buckets=(12, 20),
+                  train_gmap_buckets=(48, 64, 96))
     cfg = ExperimentConfig(planner=planner, il=il)
     return dataclasses.replace(cfg, **overrides)
 
@@ -228,7 +265,7 @@ def tiny_config(**overrides) -> ExperimentConfig:
     # CHW-flat 64 matching waypoint depth_feat_shape (16,2,2)
     depth = DepthEncoderConfig(input_size=64, baseplanes=8, ngroups=4,
                                layers=(1, 1, 1, 1), output_size=64)
-    il = ILConfig(max_traj_len=4, max_text_len=16)
+    il = ILConfig(iters=2, max_traj_len=4, max_text_len=16)
     cfg = ExperimentConfig(planner=planner, waypoint=waypoint, clip=clip,
                            depth=depth, il=il)
     return dataclasses.replace(cfg, **overrides)

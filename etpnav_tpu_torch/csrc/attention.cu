@@ -29,11 +29,26 @@
 // unnormalised probability p is rounded to the input dtype before p.v,
 // which accumulates in fp32; the division by the sum comes last. Keys are
 // visited in tiles of 32 with an online softmax, so any Lk >= 1 works.
+//
+// Training adds two optional operands. Attention-prob dropout (the learn
+// step's attn_dropout; the JAX package leaves its kernel for XLA whenever
+// dropout is on, etpnav_tpu/ops/attention.py:103,135,166): the rounded p
+// of a dropped (q, k) is zeroed and a kept one scaled by 1/keep before
+// p.v, while the sum in the denominator keeps every key, so
+// ctx = sum_k m_k/keep * round(p_k) v_k / sum_k p_k, which is
+// dropout(softmax(s)) . v. The keep bit m is Philox4x32-10 of the logical
+// (b, h, q, k) (philox.cuh), so both layouts and the backward kernel draw
+// the same mask. And the fp32 row log-sum-exp (B, H, Lq), which the
+// backward (attention_bwd.cu) reads to rebuild the probabilities. Without
+// dropout the kernel is the DROP = false instantiation, whose arithmetic
+// is the serving kernel's unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -77,13 +92,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 // query rows w*kRowsPerWarp .. +kRowsPerWarp-1 of the block's tile; in a
 // key tile, lane j scores key j, then the warp accumulates p.v with each
 // lane owning hd/32 output dims.
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, int H, int Lq, int Lk, Strides sq,
                      Strides sk, Strides sv, Strides so, long long sbb,
-                     long long sbq, long long sbk, float scale) {
+                     long long sbq, long long sbk, float scale,
+                     const long long* __restrict__ seed_offset,
+                     uint32_t threshold, float inv_keep,
+                     float* __restrict__ lse) {
   constexpr int kDimsPerLane = HD / 32;
   __shared__ float qs[kRowsPerBlock][HD];
   __shared__ float ks[kTileK][HD + 1];     // +1: lane j reads row j
@@ -98,6 +116,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + b * sbb : nullptr;
+  etp::DropoutParams dp{};
+  if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
 
   for (int i = threadIdx.x; i < kRowsPerBlock * HD; i += blockDim.x) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
@@ -142,7 +162,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = valid ? expf(s - shift) : 0.f;
       const float corr = expf(m[r] - shift);
       l[r] = l[r] * corr + warp_sum(p);
-      const float p_in = to_f(from_f<T>(p));   // p in the input dtype
+      float p_in = to_f(from_f<T>(p));         // p in the input dtype
+      if constexpr (DROP) {
+        if (valid)
+          p_in = etp::dropout_keep(dp, blockIdx.x, qi, kj) ? p_in * dp.inv_keep
+                                                            : 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] *= corr;
 #pragma unroll 8
@@ -165,6 +190,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i)
       ob[qi * so.l + lane + 32 * i] = from_f<T>(acc[r][i] * inv);
+    // l is the sum at the final max m (or 0 when every logit is -inf,
+    // whose probabilities the backward then takes as 0)
+    if (lse && lane == 0)
+      lse[static_cast<long long>(blockIdx.x) * Lq + qi] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
   }
 }
 
@@ -172,12 +202,21 @@ template <typename T, int HD>
 void launch(const void* q, const void* k, const void* v, const float* bias,
             void* out, int B, int H, int Lq, int Lk, Strides sq, Strides sk,
             Strides sv, Strides so, long long sbb, long long sbq,
-            long long sbk, float scale, cudaStream_t stream) {
+            long long sbk, float scale, const long long* seed_offset,
+            uint32_t threshold, float inv_keep, float* lse,
+            cudaStream_t stream) {
   dim3 grid(B * H, (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
-  attention_fwd_kernel<T, HD><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), H, Lq, Lk, sq,
-      sk, sv, so, sbb, sbq, sbk, scale);
+  if (seed_offset)
+    attention_fwd_kernel<T, HD, true><<<grid, kWarps * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), bias, static_cast<T*>(out), H, Lq, Lk, sq,
+        sk, sv, so, sbb, sbq, sbk, scale, seed_offset, threshold, inv_keep,
+        lse);
+  else
+    attention_fwd_kernel<T, HD, false><<<grid, kWarps * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), bias, static_cast<T*>(out), H, Lq, Lk, sq,
+        sk, sv, so, sbb, sbq, sbk, scale, nullptr, 0u, 1.f, lse);
 }
 
 
@@ -185,10 +224,13 @@ void launch(const void* q, const void* k, const void* v, const float* bias,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null (no bias). Returns
-// cudaGetLastError() after the launch, or -1 for a head dim or dtype the
-// kernel does not take (hd = 64, the width of every configuration's
-// heads, is the one built).
+// dtype: 0 = float32, 1 = bfloat16. bias may be null (no bias).
+// seed_offset: null (no dropout) or device int64[2] {seed, offset}; a
+// probability is kept iff its Philox word is below `threshold`, and then
+// scaled by inv_keep. lse: null, or a contiguous fp32 (B, H, Lq) output.
+// Returns cudaGetLastError() after the launch, or -1 for a head dim or
+// dtype the kernel does not take (hd = 64, the width of every
+// configuration's heads, is the one built).
 int etp_attention_fwd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int dtype, int B, int H,
                       int Lq, int Lk, int hd, long long sqb, long long sqh,
@@ -196,18 +238,23 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
                       long long skl, long long svb, long long svh,
                       long long svl, long long sob, long long soh,
                       long long sol, long long sbb, long long sbq,
-                      long long sbk, float scale, void* stream) {
+                      long long sbk, float scale, const void* seed_offset,
+                      unsigned threshold, float inv_keep, void* lse,
+                      void* stream) {
   const Strides sq{sqb, sqh, sql}, sk{skb, skh, skl}, sv{svb, svh, svl},
       so{sob, soh, sol};
   const float* bp = static_cast<const float*>(bias);
+  const long long* sp = static_cast<const long long*>(seed_offset);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != 64) return -1;
   if (dtype == 0)
     launch<float, 64>(q, k, v, bp, out, B, H, Lq, Lk, sq, sk, sv, so, sbb,
-                      sbq, sbk, scale, st);
+                      sbq, sbk, scale, sp, threshold, inv_keep, lp, st);
   else if (dtype == 1)
     launch<__nv_bfloat16, 64>(q, k, v, bp, out, B, H, Lq, Lk, sq, sk, sv,
-                              so, sbb, sbq, sbk, scale, st);
+                              so, sbb, sbq, sbk, scale, sp, threshold,
+                              inv_keep, lp, st);
   else
     return -1;
   return static_cast<int>(cudaGetLastError());

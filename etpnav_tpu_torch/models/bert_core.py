@@ -20,7 +20,7 @@ from etpnav_tpu_torch.ops.attention import (
     mha,
     self_attention_block,
 )
-from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, gelu_erf
+from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, dropout, gelu_erf
 
 
 class BertDims(NamedTuple):
@@ -28,6 +28,8 @@ class BertDims(NamedTuple):
     heads: int
     intermediate: int
     eps: float
+    hidden_dropout: float = 0.0
+    attn_dropout: float = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +49,11 @@ class BertEmbeddings(nn.Module):
 
 def bert_embeddings(params: BertEmbeddings, input_ids: torch.Tensor,
                     eps: float,
-                    token_type_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """word + position + type embeddings, then LN. Positions are plain
+                    token_type_ids: Optional[torch.Tensor] = None, *,
+                    hidden_dropout: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False) -> torch.Tensor:
+    """word + position + type embeddings, LN, dropout. Positions are plain
     arange(L), as in the reference (also for the XLM-R variant)."""
     L = input_ids.shape[1]
     x = params.word_embeddings[input_ids]
@@ -58,7 +62,7 @@ def bert_embeddings(params: BertEmbeddings, input_ids: torch.Tensor,
         x = x + params.token_type_embeddings[0]
     else:
         x = x + params.token_type_embeddings[token_type_ids]
-    return params.ln(x, eps)
+    return dropout(params.ln(x, eps), hidden_dropout, generator, train)
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +83,13 @@ class BertFFN(nn.Module):
         self.output = FFNOutput(hidden, intermediate)
 
 
-def bert_ffn(params: BertFFN, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """BertIntermediate + BertOutput: LN(x + W2 gelu(W1 x))."""
+def bert_ffn(params: BertFFN, x: torch.Tensor, eps: float, *,
+             hidden_dropout: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             train: bool = False) -> torch.Tensor:
+    """BertIntermediate + BertOutput: LN(x + Drop(W2 gelu(W1 x)))."""
     h = gelu_erf(params.intermediate(x))
-    h = params.output.dense(h)
+    h = dropout(params.output.dense(h), hidden_dropout, generator, train)
     return params.output.ln(x + h, eps)
 
 
@@ -94,9 +101,16 @@ class BertLayer(nn.Module):
 
 
 def bert_layer(params: BertLayer, x: torch.Tensor,
-               bias: Optional[torch.Tensor], dims: BertDims) -> torch.Tensor:
-    x = self_attention_block(params.attention, x, dims.heads, bias, dims.eps)
-    return bert_ffn(params.ffn, x, dims.eps)
+               bias: Optional[torch.Tensor], dims: BertDims, *,
+               generator: Optional[torch.Generator] = None,
+               train: bool = False) -> torch.Tensor:
+    x = self_attention_block(
+        params.attention, x, dims.heads, bias, dims.eps,
+        hidden_dropout=dims.hidden_dropout, attn_dropout=dims.attn_dropout,
+        generator=generator, train=train)
+    return bert_ffn(params.ffn, x, dims.eps,
+                    hidden_dropout=dims.hidden_dropout, generator=generator,
+                    train=train)
 
 
 def bert_stack_modules(num_layers: int, hidden: int,
@@ -106,10 +120,13 @@ def bert_stack_modules(num_layers: int, hidden: int,
 
 
 def bert_stack(layers: nn.ModuleList, x: torch.Tensor,
-               bias: Optional[torch.Tensor], dims: BertDims) -> torch.Tensor:
+               bias: Optional[torch.Tensor], dims: BertDims, *,
+               generator: Optional[torch.Generator] = None,
+               train: bool = False) -> torch.Tensor:
     """Run a stack of post-norm BERT layers."""
     for layer in layers:
-        x = bert_layer(layer, x, bias, dims)
+        x = bert_layer(layer, x, bias, dims, generator=generator,
+                       train=train)
     return x
 
 
@@ -128,15 +145,19 @@ class PrenormLayer(nn.Module):
 
 
 def prenorm_layer(params: PrenormLayer, x: torch.Tensor,
-                  bias: Optional[torch.Tensor],
-                  dims: BertDims) -> torch.Tensor:
-    """x + MHA(LN1(x)); x + W2 gelu(W1 LN2(x)). dims.eps is the inner
-    LayerNorms' eps (1e-5 in the pano encoder)."""
+                  bias: Optional[torch.Tensor], dims: BertDims, *,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = False) -> torch.Tensor:
+    """x + MHA(LN1(x)); x + W2 drop(gelu(W1 LN2(x))). dims.eps is the
+    inner LayerNorms' eps (1e-5 in the pano encoder)."""
+    p = dims.hidden_dropout
     h = params.norm1(x, dims.eps)
-    x = x + mha(params.attn, h, h, dims.heads, bias)
+    h = mha(params.attn, h, h, dims.heads, bias,
+            attn_dropout=dims.attn_dropout, generator=generator, train=train)
+    x = x + dropout(h, p, generator, train)
     h = params.norm2(x, dims.eps)
-    h = gelu_erf(params.linear1(h))
-    return x + params.linear2(h)
+    h = dropout(gelu_erf(params.linear1(h)), p, generator, train)
+    return x + dropout(params.linear2(h), p, generator, train)
 
 
 class PrenormStack(nn.Module):
@@ -149,7 +170,10 @@ class PrenormStack(nn.Module):
 
 def prenorm_stack(params: PrenormStack, x: torch.Tensor,
                   bias: Optional[torch.Tensor], dims: BertDims,
-                  final_eps: float) -> torch.Tensor:
+                  final_eps: float, *,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = False) -> torch.Tensor:
     for layer in params.layers:
-        x = prenorm_layer(layer, x, bias, dims)
+        x = prenorm_layer(layer, x, bias, dims, generator=generator,
+                          train=train)
     return params.final_ln(x, final_eps)

@@ -1,5 +1,5 @@
 """Cross-modal topological planner (counterpart of
-`etpnav_tpu/models/planner.py`, inference path):
+`etpnav_tpu/models/planner.py`: the fine-tuning and inference paths):
 
 - forward_txt        BERT embeddings + the language encoder
 - forward_panorama   RGB/depth/angle fusion + the pre-norm pano encoder
@@ -7,10 +7,15 @@
                      layers (sprel attention bias) + the SAP head
 
 Inputs are fixed-shape padded tensors with boolean masks, as in the JAX
-package; ragged assembly happens host-side in `graph/topo_map.py`.
+package; ragged assembly happens host-side in `graph/topo_map.py`. With
+`train=True` and a generator, every dropout of the reference runs (BERT
+hidden and attention-prob dropout, the SAP head's 0.1); without a
+generator the training forward is the deterministic one.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -36,10 +41,13 @@ from etpnav_tpu_torch.ops.attention import (
 from etpnav_tpu_torch.ops.basic import (
     LayerNorm,
     Linear,
+    dropout,
     init_weights,
     mask_to_bias,
 )
 
+# the SAP head's dropout (vilmodel_cmt.py NextActionPrediction)
+SAP_DROPOUT = 0.1
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -130,7 +138,7 @@ def init_planner_params(cfg: PlannerConfig,
 
 def _dims(cfg: PlannerConfig, eps: float) -> BertDims:
     return BertDims(cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
-                    eps)
+                    eps, cfg.hidden_dropout, cfg.attn_dropout)
 
 
 def _compute_dtype(use_bf16: bool) -> torch.dtype:
@@ -138,20 +146,26 @@ def _compute_dtype(use_bf16: bool) -> torch.dtype:
 
 
 def forward_txt(params: PlannerParams, cfg: PlannerConfig,
-                txt_ids: torch.Tensor, txt_masks: torch.Tensor
-                ) -> torch.Tensor:
+                txt_ids: torch.Tensor, txt_masks: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
     """(B, L) token ids + (B, L) bool mask -> (B, L, D) fp32 text memory."""
-    x = bert_embeddings(params.embeddings, txt_ids, cfg.lang_layer_norm_eps)
+    x = bert_embeddings(params.embeddings, txt_ids, cfg.lang_layer_norm_eps,
+                        hidden_dropout=cfg.hidden_dropout,
+                        generator=generator, train=train)
     bias = mask_to_bias(txt_masks)[:, None, None, :]
     x = x.to(_compute_dtype(cfg.use_bf16))
     return bert_stack(params.lang_encoder, x, bias,
-                      _dims(cfg, cfg.lang_layer_norm_eps)).float()
+                      _dims(cfg, cfg.lang_layer_norm_eps),
+                      generator=generator, train=train).float()
 
 
 def forward_panorama(params: PlannerParams, cfg: PlannerConfig,
                      rgb_fts: torch.Tensor, dep_fts: torch.Tensor,
                      loc_fts: torch.Tensor, nav_types: torch.Tensor,
-                     view_masks: torch.Tensor):
+                     view_masks: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False):
     """Panorama view fusion + pre-norm encoder. rgb_fts (B,P,512),
     dep_fts (B,P,128), loc_fts (B,P,4), nav_types (B,P) int, view_masks
     (B,P) bool -> (pano_embeds (B,P,D) fp32, view_masks)."""
@@ -164,29 +178,38 @@ def forward_panorama(params: PlannerParams, cfg: PlannerConfig,
     x = x + ie.nav_type_embedding[nav_types]
     # + token_type_embeddings(1) from the text embedding table
     x = x + params.embeddings.token_type_embeddings[1][None, None, :]
-    x = ie.ln(x, eps)
+    x = dropout(ie.ln(x, eps), cfg.hidden_dropout, generator, train)
     bias = mask_to_bias(view_masks)[:, None, None, :]
     # torch MultiheadAttention LayerNorms inside the pre-norm layer: 1e-5
     x = x.to(_compute_dtype(cfg.use_bf16))
-    x = prenorm_stack(ie.pano_encoder, x, bias, _dims(cfg, 1e-5), eps)
+    x = prenorm_stack(ie.pano_encoder, x, bias, _dims(cfg, 1e-5), eps,
+                      generator=generator, train=train)
     return x.float(), view_masks
 
 
 def _x_layer(layer: XLayer, cfg: PlannerConfig, visn: torch.Tensor,
              txt: torch.Tensor, txt_bias: torch.Tensor,
-             visn_bias: torch.Tensor) -> torch.Tensor:
+             visn_bias: torch.Tensor, *,
+             generator: Optional[torch.Generator] = None,
+             train: bool = False) -> torch.Tensor:
     eps = cfg.vis_layer_norm_eps
+    drop = {"hidden_dropout": cfg.hidden_dropout, "generator": generator,
+            "train": train}
     visn = cross_attention_block(layer.visual_attention, visn, txt,
-                                 cfg.num_heads, txt_bias, eps)
+                                 cfg.num_heads, txt_bias, eps,
+                                 attn_dropout=cfg.attn_dropout, **drop)
     visn = self_attention_block(layer.visn_self_att, visn, cfg.num_heads,
-                                visn_bias, eps)
-    return bert_ffn(layer.visn_ffn, visn, eps)
+                                visn_bias, eps,
+                                attn_dropout=cfg.attn_dropout, **drop)
+    return bert_ffn(layer.visn_ffn, visn, eps, **drop)
 
 
-def sap_head(params: SapHead, x: torch.Tensor, eps: float) -> torch.Tensor:
+def sap_head(params: SapHead, x: torch.Tensor, eps: float, *,
+             generator: Optional[torch.Generator] = None,
+             train: bool = False) -> torch.Tensor:
     """NextActionPrediction -> (B, G) scalar logits."""
     h = F.relu(params.dense1(x))
-    h = params.ln(h, eps)
+    h = dropout(params.ln(h, eps), SAP_DROPOUT, generator, train)
     return params.dense2(h)[..., 0]
 
 
@@ -196,11 +219,14 @@ def forward_navigation(params: PlannerParams, cfg: PlannerConfig,
                        gmap_step_ids: torch.Tensor,
                        gmap_pos_fts: torch.Tensor, gmap_masks: torch.Tensor,
                        gmap_visited_masks: torch.Tensor,
-                       gmap_pair_dists: torch.Tensor) -> dict:
+                       gmap_pair_dists: torch.Tensor, *,
+                       generator: Optional[torch.Generator] = None,
+                       train: bool = False) -> dict:
     """Global action scoring. gmap_img_fts (B,G,D), gmap_step_ids (B,G),
     gmap_pos_fts (B,G,7), masks (B,G) bool, pair_dists (B,G,G) ->
     {'gmap_embeds': (B,G,D), 'global_logits': (B,G)}; visited and padded
-    slots get -inf."""
+    slots get -inf. The sprel bias carries its gradient to
+    `sprel_linear` through the graph self-attention's d(bias)."""
     ge = params.global_encoder
     eps = cfg.vis_layer_norm_eps
     pos = ge.gmap_pos_embeddings.ln(
@@ -219,10 +245,12 @@ def forward_navigation(params: PlannerParams, cfg: PlannerConfig,
     dtype = _compute_dtype(nav_bf16)
     visn, txt = x.to(dtype), txt_embeds.to(dtype)
     for layer in ge.encoder:
-        visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias)
+        visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias,
+                        generator=generator, train=train)
     gmap_embeds = visn.float()
 
-    logits = sap_head(params.global_sap_head, gmap_embeds, eps)
+    logits = sap_head(params.global_sap_head, gmap_embeds, eps,
+                      generator=generator, train=train)
     neg_inf = torch.full_like(logits, float("-inf"))
     logits = torch.where(gmap_visited_masks, neg_inf, logits)
     logits = torch.where(gmap_masks, logits, neg_inf)

@@ -1,5 +1,6 @@
 """Candidate waypoint predictor TRM + heatmap post-processing
-(counterpart of `etpnav_tpu/models/waypoint.py`, inference path).
+(counterpart of `etpnav_tpu/models/waypoint.py`), with the train-time
+waypoint augmentation `sample_candidates`.
 
 The heatmap's softmax, row wrap and NMS run as one launch of K-NMS
 (`ops/fused_nms.py`); the TRM's attention, with the circular neighbour
@@ -9,6 +10,7 @@ mask as its bias, runs through K-ATT.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,6 +92,45 @@ def heatmap_to_candidates(cfg: WaypointConfig,
         "img_idx": (12 - (angle_idx + 5) // 10) % 12,
         "angles_ccw": 2.0 * math.pi - angles_cw,
         "distances": (dist_idx.float() + 1.0) * 0.25,
+        "angle_fts": angle_feature(angles_cw),
+        "nms_map": nms_map,
+    }
+
+
+def sample_candidates(cfg: WaypointConfig, heatmap_logits: torch.Tensor,
+                      nms_map: torch.Tensor,
+                      generator: Optional[torch.Generator]) -> dict:
+    """Train-time waypoint augmentation: keep the NMS-selected image
+    sectors, but draw each candidate's (angle, distance) cell from a
+    categorical over its source image's 10x12 heatmap region
+    (Policy_ViewSelection_ETP.py:247-283). `jax.random.categorical`
+    becomes `torch.multinomial` with the caller's generator."""
+    B = heatmap_logits.shape[0]
+    A, D = cfg.num_angles, cfg.num_distances
+    per_img = A // cfg.num_images                       # 10
+    angle_idx, _, valid = extract_candidates(nms_map, cfg.max_predictions)
+    K = angle_idx.shape[1]
+    img_idx_cw = ((angle_idx + 5) // 10) % 12           # clockwise view
+    # undo the heatmap offset, then carve per-image regions
+    regional = torch.roll(heatmap_logits, cfg.heatmap_offset, dims=1)
+    regional = regional.reshape(B, cfg.num_images, per_img * D)
+    region_logits = torch.gather(
+        regional, 1, img_idx_cw[..., None].expand(B, K, per_img * D))
+    probs = torch.softmax(region_logits.float(), dim=-1)
+    draw = torch.multinomial(probs.reshape(B * K, -1), 1,
+                             generator=generator).reshape(B, K)
+    # map back to the absolute angle
+    angle_ptr = torch.where(img_idx_cw != 0,
+                            (img_idx_cw - 1) * per_img + 5,
+                            torch.zeros_like(img_idx_cw))
+    s_angle = draw // D + angle_ptr
+    s_dist = draw % D
+    angles_cw = s_angle.float() / A * 2.0 * math.pi
+    return {
+        "angle_idx": s_angle, "dist_idx": s_dist, "valid": valid,
+        "img_idx": (12 - (s_angle + 5) // 10) % 12,
+        "angles_ccw": 2.0 * math.pi - angles_cw,
+        "distances": (s_dist.float() + 1.0) * 0.25,
         "angle_fts": angle_feature(angles_cw),
         "nms_map": nms_map,
     }

@@ -1,11 +1,11 @@
 """ctypes loader for the native topological-map core (native/topo_core.cpp).
 
 The port's own copy of the JAX package's loader, limited to what the
-serving path calls: the APSP edge relax and the pairwise distance
-assembly of `graph/topo_map.py`. The library builds lazily with make/g++
-on first use and is cached next to its source; every entry point returns
-a "not available" value when it cannot be built, and the caller then runs
-its numpy version.
+port calls: the APSP edge relax and the pairwise distance assembly of
+`graph/topo_map.py`, and the exact DTW of `metrics.py`. The library
+builds lazily with make/g++ on first use and is cached next to its
+source; every entry point returns a "not available" value when it cannot
+be built, and the caller then runs its numpy version.
 """
 
 from __future__ import annotations
@@ -60,6 +60,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                           ctypes.c_int64, ctypes.c_double,
                                           c_d]
         lib.pairwise_assemble.restype = None
+        lib.dtw.argtypes = [c_d, ctypes.c_int64, c_d, ctypes.c_int64]
+        lib.dtw.restype = ctypes.c_double
         _lib = lib
         return _lib
 
@@ -97,3 +99,17 @@ def pairwise_assemble(D: np.ndarray, anchors: np.ndarray,
                           _ptr(offsets, ctypes.c_double), m, scale,
                           _ptr(out, ctypes.c_double))
     return out
+
+
+def dtw(a: np.ndarray, b: np.ndarray) -> Optional[float]:
+    """Native exact DTW of two (N, 3) paths; None if the library is
+    missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    if a.shape[1] != 3 or b.shape[1] != 3:
+        raise ValueError("dtw takes (N, 3) paths")
+    return float(lib.dtw(_ptr(a, ctypes.c_double), a.shape[0],
+                         _ptr(b, ctypes.c_double), b.shape[0]))

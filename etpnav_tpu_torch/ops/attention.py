@@ -2,13 +2,14 @@
 post-norm attention sub-blocks (counterpart of
 `etpnav_tpu/ops/attention.py`).
 
-Every attention of the serving path goes through K-ATT
-(`ops/fused_attention.py`), biased or not: the projections are read in
-their natural (B, L, H, hd) layout and the context comes back in the
-layout the output projection consumes, with no transposed copy. The
-JAX package's gates (`Lk >= 128` for the biased kernel, TPU-only for the
-unbiased one) were set from TPU measurements and are not carried over.
-This slice serves only, so there is no attention-prob dropout here.
+Every attention goes through `ops/fused_attention.py::attention`: K-ATT
+forward, and where autograd records, K-ATT-BWD backward through
+`AttentionFn`; biased or not, with or without attention-prob dropout. The projections are read in their natural
+(B, L, H, hd) layout and the context comes back in the layout the output
+projection consumes, with no transposed copy. The JAX package's gates
+(`Lk >= 128` for the biased kernel, TPU-only for the unbiased one, and
+no kernel at all while dropout is on) were set from TPU measurements and
+are not carried over.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from etpnav_tpu_torch.ops.basic import LayerNorm, Linear
-from etpnav_tpu_torch.ops.fused_attention import attention_fwd
+from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, dropout
+from etpnav_tpu_torch.ops.fused_attention import attention
 
 
 class QKV(nn.Module):
@@ -44,17 +45,21 @@ class MHA(QKV):
 
 def mha(params: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor,
         num_heads: int, bias: Optional[torch.Tensor] = None,
-        o: Optional[Linear] = None) -> torch.Tensor:
+        o: Optional[Linear] = None, *, attn_dropout: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        train: bool = False) -> torch.Tensor:
     """q_in (B, Lq, D), kv_in (B, Lk, Dc), bias broadcastable to
     (B, 1, Lq, Lk) -> (B, Lq, D) after the output projection (`o`, or
-    `params.o`)."""
+    `params.o`). With `train` and a generator, the attention
+    probabilities are dropped at `attn_dropout` inside the kernel."""
     B, Lq, D = q_in.shape
     H = num_heads
     hd = D // H
     q = params.q(q_in).view(B, Lq, H, hd).transpose(1, 2)
     k = params.k(kv_in).view(B, -1, H, hd).transpose(1, 2)
     v = params.v(kv_in).view(B, -1, H, hd).transpose(1, 2)
-    ctx = attention_fwd(q, k, v, bias, 1.0 / math.sqrt(hd))
+    ctx = attention(q, k, v, bias, 1.0 / math.sqrt(hd),
+                    attn_dropout if train else 0.0, generator)
     ctx = ctx.transpose(1, 2).reshape(B, Lq, D)
     return (o if o is not None else params.o)(ctx)
 
@@ -80,16 +85,27 @@ class AttentionBlock(nn.Module):
 
 def self_attention_block(params: AttentionBlock, x: torch.Tensor,
                          num_heads: int, bias: Optional[torch.Tensor],
-                         eps: float) -> torch.Tensor:
-    """BERT post-norm self-attention sub-block: LN(x + Dense(MHA(x)))."""
-    h = mha(params.attn, x, x, num_heads, bias, o=params.out.dense)
-    return params.out.ln(x + h, eps)
+                         eps: float, *, hidden_dropout: float = 0.0,
+                         attn_dropout: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
+                         train: bool = False) -> torch.Tensor:
+    """BERT post-norm self-attention sub-block:
+    LN(x + Dropout(Dense(MHA(x))))."""
+    return cross_attention_block(params, x, x, num_heads, bias, eps,
+                                 hidden_dropout=hidden_dropout,
+                                 attn_dropout=attn_dropout,
+                                 generator=generator, train=train)
 
 
 def cross_attention_block(params: AttentionBlock, x: torch.Tensor,
                           ctx: torch.Tensor, num_heads: int,
-                          bias: Optional[torch.Tensor],
-                          eps: float) -> torch.Tensor:
+                          bias: Optional[torch.Tensor], eps: float, *,
+                          hidden_dropout: float = 0.0,
+                          attn_dropout: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          train: bool = False) -> torch.Tensor:
     """BertXAttention: cross-attention + residual LN."""
-    h = mha(params.attn, x, ctx, num_heads, bias, o=params.out.dense)
+    h = mha(params.attn, x, ctx, num_heads, bias, o=params.out.dense,
+            attn_dropout=attn_dropout, generator=generator, train=train)
+    h = dropout(h, hidden_dropout, generator, train)
     return params.out.ln(x + h, eps)

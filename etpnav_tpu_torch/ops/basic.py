@@ -9,6 +9,7 @@ dtype; additive masks use -10000, not -inf.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -50,6 +51,18 @@ def mask_to_bias(mask: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., L) bool -> additive bias: 0 where valid, NEG_INF where not."""
     return (1.0 - mask.to(dtype)) * NEG_INF
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout with the caller's generator (on x's device); the
+    identity when not training, at rate 0 or without a generator."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
 class Linear(nn.Module):

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` has a plain C interface and builds on its own into
 `etpnav_tpu_torch/build/lib<name>-<hash>.so` (the directory is listed in
-.gitignore; the hash covers the source and the flags, so an edited source
-never loads a stale library). Nothing is built or imported at module
-import: the first wrapper call on a CUDA tensor builds what it needs, and
-`build_all()` starts one nvcc per source, all at once.
+.gitignore; the hash covers the source, the shared headers and the
+flags, so an edited source never loads a stale library). Nothing is built
+or imported at module import: the first wrapper call on a CUDA tensor
+builds what it needs, and `build_all()` starts one nvcc per source, all
+at once.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Callable, Dict, List, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("attention", "heatmap_nms", "groupnorm", "prenorm_attention")
+SOURCES = ("attention", "attention_bwd", "heatmap_nms", "groupnorm",
+           "prenorm_attention")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,8 +53,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, every header of
+    csrc/ (philox.cuh is shared) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -59,10 +59,14 @@ def encode_text(params: AgentParams, cfg: ExperimentConfig,
 
 
 def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
-                    rgb: torch.Tensor, depth: torch.Tensor) -> dict:
+                    rgb: torch.Tensor, depth: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    train_sampling: bool = False) -> dict:
     """rgb (B, 12, H, W, 3) uint8, counter-clockwise views, view 0
     forward; depth (B, 12, Hd, Wd, 1) float in [0,1] or uint16. Returns
-    pano token features + K candidate slots + the heatmap."""
+    pano token features + K candidate slots + the heatmap. With
+    `train_sampling`, the candidates are re-drawn inside their sectors
+    from `generator` (the waypoint augmentation)."""
     wcfg = cfg.waypoint
     B, V = rgb.shape[:2]
     dtype = _dtype(cfg)
@@ -86,6 +90,9 @@ def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
     dep_pooled = dep_spatial.reshape(B, V, s * s, c).mean(2)  # (B,12,C)
 
     cands = waypoint.heatmap_to_candidates(wcfg, heatmap)
+    if train_sampling:
+        cands = waypoint.sample_candidates(wcfg, heatmap, cands["nms_map"],
+                                           generator)
     img_idx = cands["img_idx"]                                # (B,K)
     cand_rgb = torch.gather(
         rgb_feats, 1, img_idx[..., None].expand(-1, -1, rgb_feats.shape[-1]))
@@ -134,10 +141,13 @@ def score_navigation(params: AgentParams, cfg: ExperimentConfig,
 
 
 def perceive(params: AgentParams, cfg: ExperimentConfig, rgb: torch.Tensor,
-             depth: torch.Tensor) -> dict:
+             depth: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             train_sampling: bool = False) -> dict:
     """The per-step perception path: frozen encoders + waypoint heatmap +
-    NMS candidates + pano-token embedding."""
-    wp = encode_panorama(params, cfg, rgb, depth)
+    NMS candidates (re-drawn with `train_sampling`) + pano-token
+    embedding."""
+    wp = encode_panorama(params, cfg, rgb, depth, generator, train_sampling)
     wp.update(embed_panorama(params, cfg, {
         k: wp[k] for k in ("rgb_fts", "dep_fts", "loc_fts", "nav_types",
                            "view_masks")}))
@@ -169,8 +179,12 @@ class Agent:
                            self._t(txt_masks).bool())
 
     @torch.inference_mode()
-    def perceive(self, rgb, depth) -> dict:
-        return perceive(self.params, self.cfg, self._t(rgb), self._t(depth))
+    def perceive(self, rgb, depth,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        """With a generator (on this device), the train-time waypoint
+        augmentation draws the candidates."""
+        return perceive(self.params, self.cfg, self._t(rgb), self._t(depth),
+                        generator, train_sampling=generator is not None)
 
     @torch.inference_mode()
     def score_navigation(self, txt_embeds, txt_masks, gmap: dict) -> dict:

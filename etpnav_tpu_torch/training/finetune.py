@@ -1,0 +1,399 @@
+"""Schedule-sampling IL fine-tune trainer (counterpart of
+`etpnav_tpu/training/finetune.py`): rollout, replay learn step, AdamW.
+
+- The rollout (`training/rollout.py`) records one interval of frozen
+  features, graph assembly and teacher actions.
+- `learn_step` replays the differentiable path over all B*T recorded
+  steps at once: text encoder, pano encoder over every step, the sparse
+  aggregation of pano tokens into graph nodes, navigation encoder;
+  cross-entropy against the teacher actions (ignore -100, normalised by
+  the number of live steps, ss_trainer_ETP.py:892,1054-1056); backward;
+  AdamW on the planner only (the reference freezes CLIP, depth and the
+  waypoint predictor too). Every attention runs K-ATT forward and
+  K-ATT-BWD backward, with its dropout inside the kernels.
+
+bf16 activations where `use_bf16` says so; fp32 parameters and optimizer
+state. Dropout draws come from the trainer's torch.Generator on its
+device; without one (`generator=None`) every dropout is off, which is the
+deterministic replay the parity tests use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+import warnings
+from collections import defaultdict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from etpnav_tpu_torch.config import ExperimentConfig, pick_bucket
+from etpnav_tpu_torch.device import resolve_device
+from etpnav_tpu_torch.metrics import aggregate
+from etpnav_tpu_torch.models import planner
+from etpnav_tpu_torch.ops.basic import dropout
+from etpnav_tpu_torch.training import checkpoints
+from etpnav_tpu_torch.training.agent import (
+    Agent,
+    AgentParams,
+    init_agent_params,
+)
+from etpnav_tpu_torch.training.rollout import RolloutEngine, RolloutRecord
+
+# optax.adamw's default decay; torch.optim.AdamW's default (1e-2) differs
+WEIGHT_DECAY = 1e-4
+# drop_env on the RGB features (Policy_ViewSelection_ETP.py:102,345)
+DROP_ENV = 0.4
+
+_INT_FIELDS = ("txt_ids", "vp_nav", "agg_node_step", "agg_ent_slot",
+               "agg_ent_tok", "gmap_step_ids", "teacher")
+
+
+def replay_logits(planner_params: planner.PlannerParams,
+                  cfg: ExperimentConfig, batch: dict,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = True) -> torch.Tensor:
+    """Differentiable replay of the rollout's decision path over all
+    recorded steps at once: txt encoder -> pano encoder -> sparse
+    aggregation -> nav encoder -> (B, T, G) logits. With train=False (or
+    no generator) and the same params this reproduces the rollout-time
+    logits, which tests assert."""
+    p = cfg.planner
+    B, T, P = batch["vp_rgb"].shape[:3]
+    G = batch["gmap_mask"].shape[2]
+
+    txt = planner.forward_txt(planner_params, p, batch["txt_ids"],
+                              batch["txt_masks"], generator=generator,
+                              train=train)
+    rgb = dropout(batch["vp_rgb"], DROP_ENV, generator, train)
+    pano_embeds, _ = planner.forward_panorama(
+        planner_params, p, rgb.reshape(B * T, P, -1),
+        batch["vp_dep"].reshape(B * T, P, -1),
+        batch["vp_loc"].reshape(B * T, P, -1),
+        batch["vp_nav"].reshape(B * T, P),
+        batch["vp_mask"].reshape(B * T, P), generator=generator,
+        train=train)
+    pano_flat = pano_embeds.reshape(B, T * P, -1)
+    # zero tokens of invalid steps so aggregation only sees real data
+    step_tok_mask = batch["step_valid"].repeat_interleave(P, dim=1)
+    pano_flat = pano_flat * step_tok_mask[..., None]
+
+    # sparse provenance record: node slots gather their visit-step's
+    # masked token mean; ghost slots sum weighted gathered tokens through
+    # a small one-hot product; in fp32
+    dt = pano_flat.dtype
+    pano32 = pano_flat.float()
+    pano_bt = pano32.reshape(B, T, P, -1)
+    vmask = batch["vp_mask"] & batch["step_valid"][..., None]
+    cnt = vmask.sum(-1).clamp_min(1).float()                     # (B, T)
+    step_mean = (pano_bt * vmask[..., None]).sum(2) / cnt[..., None]
+    steps = torch.arange(T, device=pano32.device)
+    node_oh = (batch["agg_node_step"][..., None] == steps).float()
+    gmap_node = torch.einsum("btgu,bud->btgd", node_oh, step_mean)
+    rows = torch.arange(B, device=pano32.device)[:, None, None]
+    ent_feat = pano32[rows, batch["agg_ent_tok"]]                 # (B,T,M,D)
+    ent_feat = ent_feat * batch["agg_ent_val"][..., None]
+    slots = torch.arange(G, device=pano32.device)
+    slot_oh = (batch["agg_ent_slot"][..., None] == slots).float()
+    # padding entries carry val=0, so their slot-0 one-hot adds zero
+    gmap_ghost = torch.einsum("btmg,btmd->btgd", slot_oh, ent_feat)
+    gmap_img = (gmap_node + gmap_ghost).to(dt)
+
+    # navigation encoder over all steps at once
+    L = txt.shape[1]
+    txt_tiled = txt[:, None].expand(B, T, L, txt.shape[2]).reshape(
+        B * T, L, -1)
+    txt_mask_tiled = batch["txt_masks"][:, None].expand(B, T, L).reshape(
+        B * T, L)
+    nav = planner.forward_navigation(
+        planner_params, p, txt_tiled, txt_mask_tiled,
+        gmap_img.reshape(B * T, G, -1),
+        batch["gmap_step_ids"].reshape(B * T, G),
+        batch["gmap_pos_fts"].reshape(B * T, G, -1),
+        batch["gmap_mask"].reshape(B * T, G),
+        batch["gmap_visited"].reshape(B * T, G),
+        batch["gmap_pair"].reshape(B * T, G, G),
+        generator=generator, train=train)
+    return nav["global_logits"].reshape(B, T, G)
+
+
+def compute_il_loss(planner_params: planner.PlannerParams,
+                    cfg: ExperimentConfig, batch: dict,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Replay loss over a recorded rollout interval: cross-entropy of the
+    replayed logits against the teacher (-100 ignored), -inf logits taken
+    as -1e9, normalised by the number of valid steps."""
+    logits = replay_logits(planner_params, cfg, batch, generator,
+                           train=True)
+    teacher = batch["teacher"]                        # (B, T), -100 ignore
+    valid = (teacher >= 0) & batch["step_valid"]
+    logp = torch.log_softmax(
+        torch.where(torch.isfinite(logits), logits, -1e9), dim=-1)
+    nll = -logp.gather(-1, teacher.clamp_min(0)[..., None])[..., 0]
+    loss_sum = torch.where(valid, nll, 0.0).sum()
+    total_actions = batch["step_valid"].sum().clamp_min(1)
+    return cfg.il.ml_weight * loss_sum / total_actions
+
+
+def learn_step(planner_params: planner.PlannerParams,
+               optimizer: torch.optim.Optimizer, cfg: ExperimentConfig,
+               batch: dict, generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+    """Loss, backward and one AdamW step, in place; returns the detached
+    loss (still on the device: reading it is the caller's sync)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = compute_il_loss(planner_params, cfg, batch, generator)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def frozen_roots(cfg: ExperimentConfig):
+    """The planner subtrees MODEL.fix_{lang,pano}_embedding freeze
+    (vilmodel_cmt.py:675-682)."""
+    roots = set()
+    if cfg.il.fix_lang_embedding:
+        roots |= {"embeddings", "lang_encoder"}
+    if cfg.il.fix_pano_embedding:
+        roots |= {"img_embeddings"}
+    return roots
+
+
+def make_il_optimizer(cfg: ExperimentConfig,
+                      planner_params: planner.PlannerParams
+                      ) -> torch.optim.AdamW:
+    """AdamW over the planner (optax.adamw's defaults: betas 0.9/0.999,
+    eps 1e-8, weight decay 1e-4). Frozen subtrees take no gradient and
+    stay out of the optimizer, so they neither move nor decay (the JAX
+    package's `set_to_zero` branch)."""
+    roots = frozen_roots(cfg)
+    for name, child in planner_params.named_children():
+        child.requires_grad_(name not in roots)
+    trainable = [p for p in planner_params.parameters() if p.requires_grad]
+    return torch.optim.AdamW(trainable, lr=cfg.il.lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=WEIGHT_DECAY)
+
+
+def slice_record(rec: RolloutRecord, T_b: int, G_b: int) -> RolloutRecord:
+    """The record cut to its first T_b steps and G_b graph slots."""
+    T = rec.step_valid.shape[1]
+    M_b = T_b * (rec.agg_ent_val.shape[2] // T)
+    return dataclasses.replace(
+        rec,
+        vp_rgb=rec.vp_rgb[:, :T_b], vp_dep=rec.vp_dep[:, :T_b],
+        vp_loc=rec.vp_loc[:, :T_b], vp_nav=rec.vp_nav[:, :T_b],
+        vp_mask=rec.vp_mask[:, :T_b],
+        agg_node_step=rec.agg_node_step[:, :T_b, :G_b],
+        agg_ent_slot=rec.agg_ent_slot[:, :T_b, :M_b],
+        agg_ent_tok=rec.agg_ent_tok[:, :T_b, :M_b],
+        agg_ent_val=rec.agg_ent_val[:, :T_b, :M_b],
+        gmap_step_ids=rec.gmap_step_ids[:, :T_b, :G_b],
+        gmap_pos_fts=rec.gmap_pos_fts[:, :T_b, :G_b],
+        gmap_mask=rec.gmap_mask[:, :T_b, :G_b],
+        gmap_visited=rec.gmap_visited[:, :T_b, :G_b],
+        gmap_pair=rec.gmap_pair[:, :T_b, :G_b, :G_b],
+        teacher=rec.teacher[:, :T_b],
+        step_valid=rec.step_valid[:, :T_b],
+        logits=rec.logits[:, :T_b, :G_b],
+    )
+
+
+def bucket_record(rec: RolloutRecord, il) -> RolloutRecord:
+    """Slice a recorded interval to its (T, G) demand buckets
+    (IL.train_traj_buckets / train_gmap_buckets).
+
+    Exact, not approximate: emitted gmap slots are prefix-ordered with
+    padding at the end, steps beyond the last valid one are whole-row
+    padding (teacher=-100, step_valid=False), ghost-provenance entries at
+    step t reference only steps <= t and slots < the live slot count, and
+    node visit-steps are <= their row's step. So slicing the record to
+    T_b >= max valid steps and G_b >= max live slots removes only
+    padding compute."""
+    B, T = rec.step_valid.shape
+    G = rec.gmap_mask.shape[2]
+    if not (il.train_traj_buckets or il.train_gmap_buckets):
+        return rec
+    valid_t = rec.step_valid.any(0)
+    T_need = int(valid_t.nonzero()[0].max()) + 1 if valid_t.any() else 1
+    G_need = int(rec.gmap_mask.sum(-1).max())
+    T_b = pick_bucket(T_need, il.train_traj_buckets, T)
+    G_b = pick_bucket(G_need, il.train_gmap_buckets, G)
+    if (T_b, G_b) == (T, G):
+        return rec
+    return slice_record(rec, T_b, G_b)
+
+
+def record_to_batch(rec: RolloutRecord, device="cpu") -> dict:
+    """The learn step's inputs as tensors on `device` (ids as int64)."""
+    batch = {}
+    for f in dataclasses.fields(rec):
+        if f.name == "logits":
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(getattr(rec, f.name)))
+        if f.name in _INT_FIELDS:
+            t = t.long()
+        batch[f.name] = t.to(device, non_blocking=True)
+    return batch
+
+
+def _warn_short(what: str, got: int, want: int):
+    """evaluate()/inference() must not silently deliver fewer episodes than
+    requested."""
+    if got < want:
+        warnings.warn(
+            f"{what} collected {got}/{want} requested episodes before the "
+            "guard exhausted — the split may be smaller than requested or "
+            "envs may be failing; results aggregate only what arrived.",
+            RuntimeWarning, stacklevel=3)
+
+
+class FinetuneTrainer:
+    """The train / eval / inference loops. Runs on the GPU unless
+    `device="cpu"` is passed; with no GPU and no `device="cpu"` it
+    raises. With IL.is_requeue it resumes from the newest checkpoint in
+    `ckpt_dir`."""
+
+    def __init__(self, cfg: ExperimentConfig, envs, *,
+                 params: Optional[AgentParams] = None,
+                 ckpt_dir: str = "checkpoints", seed: int = 0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.envs = envs
+        self.ckpt_dir = ckpt_dir
+        self.device = resolve_device(device)
+        if params is None:
+            params = init_agent_params(cfg, seed)
+        # the Agent holds the parameters (frozen for its inference-mode
+        # programs); the planner is trained in place, so the rollout
+        # always reads the newest planner
+        self.agent = Agent(cfg, params, device=self.device)
+        self.params = self.agent.params
+        self.optimizer = make_il_optimizer(cfg, self.params.planner)
+        self.engine = RolloutEngine(cfg, self.agent, envs, seed=seed)
+        # per-iteration dropout draws, on the training device
+        self.generator = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
+        self.iteration = 0
+        self.logs = defaultdict(list)
+        # (T, G) learn-bucket usage histogram
+        self.bucket_counts: Dict[tuple, int] = {}
+        if cfg.il.is_requeue:
+            self.resume_latest()
+
+    def resume_latest(self, ckpt_dir: Optional[str] = None) -> bool:
+        """IL.is_requeue: restore the newest checkpoint incl. optimizer
+        state (ss_trainer_ETP.py:216-236)."""
+        ckpt = checkpoints.latest_checkpoint(ckpt_dir or self.ckpt_dir)
+        if ckpt is None:
+            return False
+        self.load_checkpoint(ckpt)
+        return True
+
+    def batch(self, rec: RolloutRecord) -> dict:
+        return record_to_batch(rec, self.device)
+
+    def train(self, iters: Optional[int] = None,
+              gt_paths: Optional[dict] = None,
+              save_every: Optional[int] = None) -> Dict[str, float]:
+        """`iters` rollout + learn iterations; returns the means of the
+        loss and of the two phases' seconds over them. save_every:
+        checkpoint to self.ckpt_dir every N iterations."""
+        il = self.cfg.il
+        iters = iters if iters is not None else il.iters
+        for _ in range(iters):
+            ratio = il.sample_ratio ** (
+                self.iteration // il.decay_interval + 1)
+            t0 = time.perf_counter()
+            rec = self.engine.run("train", sample_ratio=ratio,
+                                  gt_paths=gt_paths)
+            t1 = time.perf_counter()
+            brec = bucket_record(rec, il)
+            self.last_bucket = (brec.step_valid.shape[1],
+                                brec.gmap_mask.shape[2])
+            self.bucket_counts[self.last_bucket] = \
+                self.bucket_counts.get(self.last_bucket, 0) + 1
+            loss = learn_step(self.params.planner, self.optimizer, self.cfg,
+                              self.batch(brec), self.generator)
+            loss = float(loss)          # the learn phase ends on the device
+            t2 = time.perf_counter()
+            self.iteration += 1
+            self.logs["IL_loss"].append(loss)
+            self.logs["rollout_s"].append(t1 - t0)
+            self.logs["learn_s"].append(t2 - t1)
+            if save_every and self.iteration % save_every == 0:
+                self.save_checkpoint(os.path.join(
+                    self.ckpt_dir, f"ckpt_iter{self.iteration}.pt"))
+        return {k: float(np.mean(v[-iters:])) for k, v in self.logs.items()}
+
+    def evaluate(self, episode_count: int,
+                 gt_paths: Optional[dict] = None) -> Dict[str, float]:
+        """Eval loop (ss_trainer_ETP.py:513-641): argmax policy, metric
+        aggregation over unique episodes."""
+        stat_eps: dict = {}
+        guard = stalled = 0
+        while len(stat_eps) < episode_count and guard < 10 * episode_count:
+            before = len(stat_eps)
+            self.engine.run("eval", stat_eps=stat_eps, gt_paths=gt_paths)
+            guard += 1
+            stalled = stalled + 1 if len(stat_eps) == before else 0
+            if stalled >= 3:
+                break   # split exhausted / envs failing: stop early
+        _warn_short("evaluate", len(stat_eps), episode_count)
+        stats = aggregate(stat_eps)
+        if stats:
+            stats["n_episodes"] = float(len(stat_eps))
+        return stats
+
+    def inference(self, episode_count: int, predictions_file: str,
+                  fmt: str = "r2r", sample: bool = False) -> dict:
+        """Leaderboard submission writer (ss_trainer_ETP.py:643-756)."""
+        path_eps: dict = {}
+        guard = stalled = 0
+        while len(path_eps) < episode_count and guard < 10 * episode_count:
+            before = len(path_eps)
+            self.engine.run("infer", path_eps=path_eps,
+                            sample_actions=sample)
+            guard += 1
+            stalled = stalled + 1 if len(path_eps) == before else 0
+            if stalled >= 3:
+                break
+        _warn_short("inference", len(path_eps), episode_count)
+        os.makedirs(os.path.dirname(predictions_file) or ".", exist_ok=True)
+        if fmt == "r2r":
+            payload = {k: v["path"] for k, v in path_eps.items()}
+            with open(predictions_file, "w") as f:
+                json.dump(payload, f, indent=2)
+        else:  # rxr jsonl
+            preds = []
+            for k, v in path_eps.items():
+                pts = [v["path"][0]["position"]]
+                for p in v["path"][1:]:
+                    if p["position"] != pts[-1]:
+                        pts.append(p["position"])
+                preds.append({"instruction_id": v["instruction_id"],
+                              "path": pts})
+            preds.sort(key=lambda x: x["instruction_id"])
+            with open(predictions_file, "w") as f:
+                for p in preds:
+                    f.write(json.dumps(p) + "\n")
+        return path_eps
+
+    # ------------------------------------------------------------- ckpts
+
+    def save_checkpoint(self, path: str):
+        checkpoints.save_checkpoint(path, {
+            "params": self.params.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "iteration": self.iteration,
+        })
+
+    def load_checkpoint(self, path: str):
+        state = checkpoints.load_checkpoint(path, map_location=self.device)
+        self.params.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.iteration = int(state["iteration"])

@@ -1,0 +1,33 @@
+"""Trajectory helpers the port's environments read (the port's own copy
+of `ndtw_subgoal_index` from `etpnav_tpu/utils/trajectory.py`)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def ndtw_subgoal_index(within: np.ndarray, progress: int):
+    """Subgoal selection for the ndtw expert, replicating
+    environments.py:163-180 EXACTLY — including the reference's
+    run-relative indexing quirk: when the candidate indices are
+    non-contiguous (e.g. cand=[5,6,9]), the reference computes
+    `np.where(compare==False)[0][0]-1`, a POSITION within cand minus
+    one, and indexes ref_path with it (ref[1] here, not ref[6]). The
+    released checkpoints were trained with this behavior, so parity
+    preserves it rather than "fixing" it.
+
+    within: bool array, ref points within 3 m of the agent.
+    Returns (sub_idx, new_progress); sub_idx None means "keep the
+    previous subgoal position" (no ref point within 3 m)."""
+    if not within.any():
+        return None, progress
+    cand = np.flatnonzero(within & (np.arange(len(within)) >= progress))
+    if len(cand) == 0:
+        return int(progress), progress
+    run = np.arange(cand[0], cand[0] + len(cand))
+    mism = np.flatnonzero(run != cand)
+    if len(mism) == 0:
+        sub_idx = int(cand[-1])
+    else:
+        sub_idx = int(mism[0] - 1)      # the quirk: position, not index
+    return sub_idx, sub_idx

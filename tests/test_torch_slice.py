@@ -222,7 +222,13 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"etpnav_tpu_torch/ops/fused_groupnorm.py",
-            "etpnav_tpu_torch/ops/fused_prenorm.py"} <= names
+            "etpnav_tpu_torch/ops/fused_prenorm.py",
+            "etpnav_tpu_torch/training/finetune.py",
+            "etpnav_tpu_torch/training/checkpoints.py",
+            "etpnav_tpu_torch/env/geometric.py",
+            "etpnav_tpu_torch/env/protocol.py",
+            "etpnav_tpu_torch/metrics.py",
+            "etpnav_tpu_torch/utils/trajectory.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
