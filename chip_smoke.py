@@ -8,8 +8,9 @@ CUDA toolkit):
 
 Phases, each reported on its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build: every CUDA kernel of the port, from the sources in the
-     checkout, one nvcc per source, all started together;
+  2. build: every CUDA kernel of the port (six sources: K-ATT with
+     K-ATT-CHEAP, K-ATT-BWD, K-NMS, K-GN, K-PRENORM, K-BLOCK), from the
+     sources in the checkout, one nvcc per source, all started together;
   3. every kernel against its plain PyTorch version on the card, at the
      serving path's shapes, in fp32 and bf16, with its time, the plain
      version's, the PyTorch library call's where there is one, and the
@@ -48,6 +49,20 @@ Phases, each reported on its own lines:
   7b. the learn step's loss and every planner gradient at full R2R width
      in fp32 with dropout off, card (kernels) against CPU (plain
      versions), on 2 envs x 3 steps of the recorded interval;
+  8. K-BLOCK (the post-norm attention sub-block, `ops/fused_block.py`) on
+     the model's own layers: the attention block of each of the 9
+     text-encoder layers on the hidden states `forward_txt` feeds it (8
+     instructions, L = 80) and the `visn_self_att` block of each of the 4
+     cross-modal layers on the graph states `forward_navigation` feeds it
+     (G = 96, mask + sprel bias), in the stack's dtype and in fp32, and
+     alone at (160, 64) and (64, 200); exact launch counts, each launch
+     against its plain version and against the port's unfused
+     `self_attention_block`, times beside the card's bound;
+  8b. the two experiment tools `tools.exp_attn_layout.main()` and
+     `tools.exp_attn_pack.main()` at their CLIP shape: every variant
+     within its tolerance, exact launch counts (K-ATT, K-ATT with the
+     head-leading output, K-ATT-CHEAP) and no plain call; then K-ATT with
+     `out_layout="head"` and K-ATT-CHEAP against their plain versions;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -1027,6 +1042,15 @@ def profile_learn_step(card: str, tr, batch) -> dict:
                     for e in top[:6]]}
 
 
+# K-BLOCK against the port's unfused `self_attention_block` (cuBLAS GEMMs,
+# K-ATT, LayerNorm) on the card. fp32: both fp32, the sums in another
+# order and the softmax divided at another point. bf16: the unfused block
+# also rounds the dense layers' biases, the output projection and x + h to
+# bf16 before the LayerNorm, where K-BLOCK (the TPU kernel's rounding
+# points) keeps them fp32: four bf16 ulps at the largest output.
+BLOCK_UNFUSED_ULPS = 4
+
+
 # card (fp32, kernels) against CPU (fp32, plain versions): the learn
 # step's loss and every planner gradient, max |diff| <= LEARN_REL_TOL *
 # max |CPU gradient| + 1e-6 per tensor. fp32 sums in another order
@@ -1097,6 +1121,275 @@ def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
     log(f"learn parity (fp32, 2 envs x 3 steps, card vs CPU): "
         f"{json.dumps(res)} [{card}]")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K-BLOCK on the model's own layers
+# ---------------------------------------------------------------------------
+
+def block_tol(want: torch.Tensor, dtype) -> float:
+    """K-BLOCK against its plain version on the card: fp32 1e-5 of the
+    largest output + 1e-5 (LayerNorm outputs up to ~5; the fp32 sums of
+    768 products run in another order); bf16 two ulps of the largest
+    (both round at the same points; a value next to a tie may land one
+    ulp apart, and an ulp of q/k/v or ctx moves the output by about one)."""
+    if dtype == torch.bfloat16:
+        return bf16_tol(want)
+    return 1e-5 * want.float().abs().max().item() + 1e-5
+
+
+def record_blocks(cfg, planner_p) -> list:
+    """(name, AttentionBlock, x, bias, eps) of the attention block of each
+    text-encoder layer (8 instructions of L = 80 tokens, `forward_txt`)
+    and of each cross-modal layer's graph self-attention (G = 96 slots,
+    `forward_navigation`), on the inputs the unfused stacks feed them, in
+    the stacks' dtype."""
+    from etpnav_tpu_torch.models import bert_core, planner
+    pc = cfg.planner
+    rng = np.random.default_rng(21)
+    B, L, G, D = 8, cfg.il.max_text_len, 96, pc.hidden_size
+    lengths = rng.integers(10, L + 1, (B, 1))
+    ids = np.where(np.arange(L)[None] < lengths,
+                   rng.integers(1, pc.vocab_size, (B, L)), pc.pad_token_id)
+    dev = torch.device("cuda")
+    ids_t = torch.from_numpy(ids).to(dev)
+    tmask = torch.from_numpy(np.arange(L)[None] < lengths).to(dev)
+    gmask = torch.arange(G, device=dev)[None].expand(B, G) < 66
+    calls = []
+
+    def recorder(tag, orig):
+        def rec(params, x, num_heads, bias, eps, **kw):
+            n = sum(c[0].startswith(tag) for c in calls)
+            calls.append((f"{tag}{n}", params, x.clone(), bias, eps))
+            return orig(params, x, num_heads, bias, eps, **kw)
+        return rec
+
+    orig_txt, orig_nav = (bert_core.self_attention_block,
+                          planner.self_attention_block)
+    bert_core.self_attention_block = recorder("text", orig_txt)
+    planner.self_attention_block = recorder("graph", orig_nav)
+    try:
+        txt = planner.forward_txt(planner_p, pc, ids_t, tmask)
+        planner.forward_navigation(
+            planner_p, pc, txt, tmask,
+            torch.from_numpy(rng.standard_normal((B, G, D)).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(rng.integers(0, 20, (B, G))).to(dev),
+            torch.from_numpy(rng.standard_normal((B, G, 7)).astype(
+                np.float32)).to(dev),
+            gmask, torch.zeros(B, G, dtype=torch.bool, device=dev),
+            torch.from_numpy((rng.random((B, G, G)) * 10).astype(
+                np.float32)).to(dev))
+    finally:
+        bert_core.self_attention_block = orig_txt
+        planner.self_attention_block = orig_nav
+    n_txt = sum(c[0].startswith("text") for c in calls)
+    if n_txt != pc.num_l_layers or len(calls) - n_txt != pc.num_x_layers:
+        raise AssertionError(f"K-BLOCK: recorded {[c[0] for c in calls]}")
+    return calls
+
+
+def block_work(x: torch.Tensor, bias) -> tuple:
+    """Bytes (x read and the output written once, the fp32 weights, biases
+    and LN parameters read once, the bias's stored elements) and FLOP
+    (2*M*D*4D for the projections + 4*B*L^2*D for q.k and p.v)."""
+    Bx, L, D = x.shape
+    nbytes = (2 * x.numel() * x.element_size() + 4 * (4 * D * D + 6 * D)
+              + (0 if bias is None else 4 * bias.numel()))
+    return nbytes, 2.0 * Bx * L * D * 4 * D + 4.0 * Bx * L * L * D
+
+
+def check_block(card: str, cfg, planner_p, counters) -> tuple:
+    """Phase 8: K-BLOCK on the 9 text-encoder and 4 graph self-attention
+    blocks of `r2r_config` (stack dtype and fp32) and alone at the TPU
+    note's (160, 64) and (64, 200). The launches run first with every
+    count at 0 and are read before anything else runs; then each is held
+    to its plain version and to the port's unfused block, and one case per
+    shape and dtype is timed."""
+    from etpnav_tpu_torch.ops.attention import self_attention_block
+    from etpnav_tpu_torch.ops.fused_block import (
+        attention_block,
+        attention_block_plain,
+    )
+    pc = cfg.planner
+    H = pc.num_heads
+    cases = []
+    for name, p, x, bias, eps in record_blocks(cfg, planner_p):
+        for dtype in dict.fromkeys((x.dtype, torch.float32)):
+            cases.append((name, p, x.to(dtype), bias, eps))
+    g = torch.Generator(device="cuda").manual_seed(22)
+    p0 = planner_p.lang_encoder[0].attention
+    for Bx, L in ((160, 64), (64, 200)):
+        x32 = torch.randn(Bx, L, pc.hidden_size, generator=g, device="cuda")
+        keep = torch.randint(L // 3, L + 1, (Bx, 1), generator=g,
+                             device="cuda")
+        bias = ((torch.arange(L, device="cuda")[None] >= keep).float()
+                * -10000.0)[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"alone_{Bx}x{L}", p0, x32.to(dtype), bias,
+                          pc.lang_layer_norm_eps))
+    for c in counters.values():
+        c.reset()
+    outs = [attention_block(x, p, bias, H, eps)
+            for _, p, x, bias, eps in cases]
+    torch.cuda.synchronize()
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["attention_block"] = len(cases)
+    if counts != want:
+        raise AssertionError(f"K-BLOCK: launches {counts} != {want}")
+    rows, timed = {}, set()
+    for got, (name, p, x, bias, eps) in zip(outs, cases):
+        dtype = x.dtype
+        want_p = attention_block_plain(x, p, bias, H, eps)
+        unfused = self_attention_block(p, x, H, bias, eps)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), f"K-BLOCK {name}: finite"
+        err = (got.float() - want_p.float()).abs().max().item()
+        tol = block_tol(want_p, dtype)
+        err_u = (got.float() - unfused.float()).abs().max().item()
+        tol_u = (BLOCK_UNFUSED_ULPS / BF16_ULPS * bf16_tol(unfused)
+                 if dtype == torch.bfloat16 else
+                 5 * block_tol(unfused, dtype))
+        key = f"{name}/{str(dtype).split('.')[-1]}"
+        if err > tol or err_u > tol_u:
+            raise AssertionError(f"K-BLOCK {key}: err {err} (tol {tol}), "
+                                 f"against unfused {err_u} (tol {tol_u})")
+        row = {"shape": list(x.shape), "eps": eps, "max_abs_err": err,
+               "tol": tol, "unfused_err": err_u, "unfused_tol": tol_u}
+        shape_key = (name.rstrip("0123456789"), dtype)
+        if shape_key not in timed:
+            timed.add(shape_key)
+            row["ms"] = cuda_ms(lambda: attention_block(x, p, bias, H, eps),
+                                iters=20)
+            row["plain_ms"] = cuda_ms(lambda: attention_block_plain(
+                x, p, bias, H, eps), iters=5, warmup=1)
+            row["unfused_block_ms"] = cuda_ms(
+                lambda: self_attention_block(p, x, H, bias, eps), iters=20)
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                *block_work(x, bias), dtype)
+        rows[key] = row
+        times = ("" if "ms" not in row else
+                 f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                 f"unfused_block_ms={row['unfused_block_ms']:.4f} "
+                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        log(f"K-BLOCK {key:22s} x{tuple(x.shape)} err={err:.3g} (tol "
+            f"{tol:.3g}) vs unfused {err_u:.3g} (tol {tol_u:.3g}){times} "
+            f"[{card}]")
+    log(f"K-BLOCK: {counts['attention_block']} launches, exact; no plain "
+        f"call [{card}]")
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the two experiment tools
+# ---------------------------------------------------------------------------
+
+TOOL_ITERS = 100
+
+
+def run_tools(card: str, counters) -> dict:
+    """`tools.exp_attn_layout.main()` and `tools.exp_attn_pack.main()` at
+    their CLIP shape, each with every count at 0 before and read after:
+    each variant launches 1 + 4 * iters times (a checked call, then 4
+    chained runs); layout's blhd K-ATT, its xla_t and bdims K-ATT with the
+    head-leading output; pack's v_base K-ATT, its v_p1bf K-ATT-CHEAP (its
+    packed variants have no card counterpart and are not run)."""
+    from etpnav_tpu_torch.tools import exp_attn_layout, exp_attn_pack
+    n = 1 + 4 * TOOL_ITERS
+    tools = {"exp_attn_layout": (exp_attn_layout, {
+                 "attention_fwd": n, "attention_fwd_head_out": 2 * n}),
+             "exp_attn_pack": (exp_attn_pack, {
+                 "attention_fwd": n, "attention_cheap": n})}
+    res = {}
+    for name, (mod, launches) in tools.items():
+        for c in counters.values():
+            c.reset()
+        out = mod.main(iters=TOOL_ITERS)
+        torch.cuda.synchronize()
+        counts = {k: c.value for k, c in counters.items()}
+        want = {k: launches.get(k, 0) for k in counters}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} != {want}")
+        for v, r in out["variants"].items():
+            if not r["max_err"] <= r["tol"]:
+                raise AssertionError(f"{name} {v}: {r}")
+        res[name] = {"result": out,
+                     "launches": {k: v for k, v in counts.items() if v}}
+        log(f"tool {name}: {json.dumps(out)}; launches exact "
+            f"{json.dumps(launches)}, no plain call [{card}]")
+    return res
+
+
+def check_head_out_and_cheap(card: str) -> dict:
+    """K-ATT with `out_layout="head"` (T1) on the natural-layout inputs and
+    K-ATT-CHEAP (T2) on head-leading ones, at the tools' shape, against
+    their plain versions; times beside the bound and SDPA on the same
+    operands: T1's function, and T2's up to its rounding points, since
+    softmax(x - 10) is softmax(x)."""
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.ops.fused_attention import (
+        attention_cheap,
+        attention_cheap_plain,
+        attention_fwd,
+        attention_plain,
+    )
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, H, L, hd = 384, 12, 50, 64
+    scale = 1.0 / np.sqrt(hd)
+    nat = [torch.randn(B, L, H, hd, generator=g, device="cuda").transpose(
+        1, 2) for _ in range(3)]
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dtype) for t in nat)
+        got = attention_fwd(q, k, v, None, scale, out_layout="head")
+        want = attention_plain(q, k, v, None, scale, out_layout="head")
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and want.is_contiguous()):
+            raise AssertionError("K-ATT head-out: output not head-leading")
+        err = (got.float() - want.float()).abs().max().item()
+        if err > TOL[dtype]:
+            raise AssertionError(f"K-ATT head-out {dtype}: err {err}")
+        key = f"head_out/{str(dtype).split('.')[-1]}"
+        nbytes, flops = attention_work(q, k, v, None)
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        rows[key] = {
+            "shape": [B, H, L, hd], "max_abs_err": err,
+            "ms": cuda_ms(lambda: attention_fwd(q, k, v, None, scale,
+                                                out_layout="head")),
+            "plain_ms": cuda_ms(lambda: attention_plain(
+                q, k, v, None, scale, out_layout="head"), iters=10),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    q, k, v = (t.to(torch.bfloat16).contiguous() for t in nat)
+    got = attention_cheap(q, k, v, scale)
+    want = attention_cheap_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = bf16_tol(want)
+    if err > tol:
+        raise AssertionError(f"K-ATT-CHEAP: err {err} > {tol}")
+    nbytes, flops = attention_work(q, k, v, None)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+    rows["cheap/bfloat16"] = {
+        "shape": [B, H, L, hd], "max_abs_err": err, "tol": tol,
+        "ms": cuda_ms(lambda: attention_cheap(q, k, v, scale)),
+        "plain_ms": cuda_ms(lambda: attention_cheap_plain(q, k, v, scale),
+                            iters=10),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    for key, r in rows.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"{key:18s} (B,H,L,hd)={tuple(r['shape'])} "
+            f"err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} sdpa_ms={lib} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1171,6 +1464,7 @@ def main() -> int:
     from etpnav_tpu_torch.ops import (
         cuda_build,
         fused_attention,
+        fused_block,
         fused_groupnorm,
         fused_nms,
         fused_prenorm,
@@ -1228,7 +1522,15 @@ def main() -> int:
                     fused_prenorm.prenorm_attention_plain_calls,
                 "attention_bwd": fused_attention.attention_bwd_launches,
                 "attention_bwd_plain":
-                    fused_attention.attention_bwd_plain_calls}
+                    fused_attention.attention_bwd_plain_calls,
+                "attention_fwd_head_out":
+                    fused_attention.attention_fwd_head_out_launches,
+                "attention_cheap": fused_attention.attention_cheap_launches,
+                "attention_cheap_plain":
+                    fused_attention.attention_cheap_plain_calls,
+                "attention_block": fused_block.attention_block_launches,
+                "attention_block_plain":
+                    fused_block.attention_block_plain_calls}
     log(f"phase 3 done at {time.perf_counter() - T0:.0f} s")
     # phase 4
     t0 = time.perf_counter()
@@ -1265,6 +1567,15 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     log(f"phase 7b done at {time.perf_counter() - T0:.0f} s")
+    # phase 8
+    with torch.inference_mode():
+        block_rows, block_counts = check_block(
+            card, cfg, host_params.planner.to("cuda"), counters)
+    log(f"phase 8 done at {time.perf_counter() - T0:.0f} s")
+    # phase 8b
+    tool_res = run_tools(card, counters)
+    t12_rows = check_head_out_and_cheap(card)
+    log(f"phase 8b done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -1274,6 +1585,9 @@ def main() -> int:
     g = gn_bf16[gn_key]
     p = pre_rows["bfloat16"]
     bw = bwd_rows["graph_g96/bfloat16/p0.1/dbias"]
+    kb = block_rows["text0/bfloat16"]
+    t1 = t12_rows["head_out/bfloat16"]
+    t2 = t12_rows["cheap/bfloat16"]
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
@@ -1333,6 +1647,42 @@ def main() -> int:
                "bias, dropout 0.1, dbias; library_ms is SDPA forward + "
                "backward, beside fwd_bwd_ms (K-ATT + K-ATT-BWD)",
          "fwd_bwd_ms": bw["fwd_bwd_ms"]},
+        {"name": "attention_block", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/attention_block.cu",
+         "replaces": "etpnav_tpu/ops/pallas_attention.py:686 "
+                     "fused_attention_block",
+         "launches": block_counts["attention_block"],
+         "max_abs_err": max(r["max_abs_err"] for r in block_rows.values()),
+         "ms": kb["ms"], "plain_ms": kb["plain_ms"],
+         "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+         "library_ms": None,
+         "at": "text-encoder layer x (8,80,768) bf16 + key-mask bias; "
+               "launches: phase 8's 9 text + 4 graph blocks in two dtypes "
+               "and (160,64), (64,200) in two",
+         "unfused_block_ms": kb["unfused_block_ms"]},
+        {"name": "attention_fwd_head_out", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/attention.cu",
+         "replaces": "tools/exp_attn_layout.py:61 bdims_attention",
+         "launches": tool_res["exp_attn_layout"]["launches"][
+             "attention_fwd_head_out"],
+         "max_abs_err": max(t12_rows["head_out/bfloat16"]["max_abs_err"],
+                            t12_rows["head_out/float32"]["max_abs_err"]),
+         "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+         "library_ms": t1["library_ms"],
+         "at": "q/k/v (384,50,12,64) natural, out (384,12,50,64) bf16; "
+               "library_ms is SDPA on the same operands"},
+        {"name": "attention_cheap", "route": "cuda",
+         "source": "etpnav_tpu_torch/csrc/attention.cu",
+         "replaces": "tools/exp_attn_pack.py:86 cheap_attention",
+         "launches": tool_res["exp_attn_pack"]["launches"][
+             "attention_cheap"],
+         "max_abs_err": t2["max_abs_err"],
+         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+         "library_ms": t2["library_ms"],
+         "at": "q/k/v (384,12,50,64) head-leading bf16; library_ms is SDPA "
+               "on the same operands (softmax(x - 10) = softmax(x))"},
     ]
     log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
         f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")

@@ -42,6 +42,21 @@
 // backward (attention_bwd.cu) reads to rebuild the probabilities. Without
 // dropout the kernel is the DROP = false instantiation, whose arithmetic
 // is the serving kernel's unchanged.
+//
+// K-ATT-CHEAP is the CHEAP = true instantiation of the same kernel, behind
+// its own entry point etp_attention_cheap (bf16 only). It replaces
+// cheap_attention (tools/exp_attn_pack.py:86, kernel_cheap :49-84), a TPU
+// experiment: bf16 logits and a constant-shift softmax with no max pass,
+// logits = bf16(sum q.k), x bf16(scale), - bf16(10), p = bf16(exp(.)),
+// denom and ctx fp32 sums, out = bf16(ctx / denom). Only the softmax stage
+// differs from K-ATT (the tiles, the layouts, the p.v loop and the final
+// division are the same), so it is a template switch here and not a source
+// of its own: with no running max there is nothing to rescale, and the
+// division by the sum still comes last. Its `pack` option filled the TPU's
+// 128x128 matrix unit with two samples and has no counterpart here. What
+// bounds it is what bounds K-ATT, the bytes of q, k, v and the output: the
+// switch drops the max reduction and the rescaling, arithmetic that runs
+// beside the loads; it moves the same bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +91,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -91,8 +110,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 // grid: (B*H, ceil(Lq / kRowsPerBlock)); block: kWarps warps. Warp w owns
 // query rows w*kRowsPerWarp .. +kRowsPerWarp-1 of the block's tile; in a
 // key tile, lane j scores key j, then the warp accumulates p.v with each
-// lane owning hd/32 output dims.
-template <typename T, int HD, bool DROP>
+// lane owning hd/32 output dims. CHEAP (bf16, no bias, no dropout, no
+// lse): K-ATT-CHEAP's constant-shift softmax in place of the online one.
+template <typename T, int HD, bool DROP, bool CHEAP = false>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
@@ -118,6 +138,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* biasb = bias ? bias + b * sbb : nullptr;
   etp::DropoutParams dp{};
   if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
+  [[maybe_unused]] const float scale_bf16 = round_bf16(scale);
 
   for (int i = threadIdx.x; i < kRowsPerBlock * HD; i += blockDim.x) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
@@ -153,23 +174,34 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) s = fmaf(qs[row][d], ks[lane][d], s);
-      s *= scale;
-      if (valid && biasb) s += biasb[qi * sbq + kj * sbk];
-      s = valid ? s : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      // all logits so far -inf (only with a -inf bias): shift by 0
-      const float shift = m_new == -INFINITY ? 0.f : m_new;
-      const float p = valid ? expf(s - shift) : 0.f;
-      const float corr = expf(m[r] - shift);
-      l[r] = l[r] * corr + warp_sum(p);
-      float p_in = to_f(from_f<T>(p));         // p in the input dtype
-      if constexpr (DROP) {
-        if (valid)
-          p_in = etp::dropout_keep(dp, blockIdx.x, qi, kj) ? p_in * dp.inv_keep
-                                                            : 0.f;
-      }
+      float p_in;
+      if constexpr (CHEAP) {
+        // every step rounded to bf16; a constant shift of 10, no max
+        const float t =
+            round_bf16(round_bf16(round_bf16(s) * scale_bf16) - 10.f);
+        p_in = valid ? round_bf16(expf(t)) : 0.f;
+        l[r] += warp_sum(p_in);
+      } else {
+        s *= scale;
+        if (valid && biasb) s += biasb[qi * sbq + kj * sbk];
+        s = valid ? s : -INFINITY;
+        const float m_new = fmaxf(m[r], warp_max(s));
+        // all logits so far -inf (only with a -inf bias): shift by 0
+        const float shift = m_new == -INFINITY ? 0.f : m_new;
+        const float p = valid ? expf(s - shift) : 0.f;
+        const float corr = expf(m[r] - shift);
+        l[r] = l[r] * corr + warp_sum(p);
+        p_in = to_f(from_f<T>(p));             // p in the input dtype
+        if constexpr (DROP) {
+          if (valid)
+            p_in = etp::dropout_keep(dp, blockIdx.x, qi, kj)
+                       ? p_in * dp.inv_keep
+                       : 0.f;
+        }
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] *= corr;
+        for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] *= corr;
+        m[r] = m_new;
+      }
 #pragma unroll 8
       for (int j = 0; j < kTileK; ++j) {
         const float pj = __shfl_sync(kFull, p_in, j);
@@ -177,7 +209,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < kDimsPerLane; ++i)
           acc[r][i] = fmaf(pj, vs[j][lane + 32 * i], acc[r][i]);
       }
-      m[r] = m_new;
     }
   }
 
@@ -219,6 +250,18 @@ void launch(const void* q, const void* k, const void* v, const float* bias,
         sk, sv, so, sbb, sbq, sbk, scale, nullptr, 0u, 1.f, lse);
 }
 
+void launch_cheap(const void* q, const void* k, const void* v, void* out,
+                  int B, int H, int Lq, int Lk, Strides sq, Strides sk,
+                  Strides sv, Strides so, float scale, cudaStream_t stream) {
+  dim3 grid(B * H, (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
+  attention_fwd_kernel<__nv_bfloat16, 64, false, true>
+      <<<grid, kWarps * 32, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), nullptr,
+          static_cast<__nv_bfloat16*>(out), H, Lq, Lk, sq, sk, sv, so, 0, 0,
+          0, scale, nullptr, 0u, 1.f, nullptr);
+}
 
 }  // namespace
 
@@ -257,6 +300,24 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
                               inv_keep, lp, st);
   else
     return -1;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K-ATT-CHEAP: bfloat16 q, k, v and out with the same element strides as
+// etp_attention_fwd, no bias. Returns cudaGetLastError() after the launch,
+// or -1 for a head dim other than 64.
+int etp_attention_cheap(const void* q, const void* k, const void* v,
+                        void* out, int B, int H, int Lq, int Lk, int hd,
+                        long long sqb, long long sqh, long long sql,
+                        long long skb, long long skh, long long skl,
+                        long long svb, long long svh, long long svl,
+                        long long sob, long long soh, long long sol,
+                        float scale, void* stream) {
+  if (hd != 64) return -1;
+  launch_cheap(q, k, v, out, B, H, Lq, Lk, Strides{sqb, sqh, sql},
+               Strides{skb, skh, skl}, Strides{svb, svh, svl},
+               Strides{sob, soh, sol}, scale,
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,131 @@
+// K-BLOCK: the post-norm BERT self-attention sub-block,
+// y = LN(x + (softmax(q.k^T * scale + bias[b]) . v) . Wo + bo), with the
+// q/k/v/o projections inside, for sm_90a. Built by nvcc into a shared
+// library with a plain C interface (see etpnav_tpu_torch/ops/cuda_build.py)
+// and called through ctypes from etpnav_tpu_torch/ops/fused_block.py.
+//
+// Replaces the Pallas TPU kernel fused_attention_block
+// (etpnav_tpu/ops/pallas_attention.py:686, _attn_block_kernel :639-683).
+// Inference only. Its rounding points, which differ from K-ATT's:
+//   - each projection an fp32 sum of x-dtype operands plus the fp32 bias,
+//     rounded to x's dtype (the fp32 (out, in) weights are rounded to x's
+//     dtype as they are loaded);
+//   - logits fp32 times scale plus the fp32 bias; p = exp(l - max)
+//     normalised by the row sum in fp32 BEFORE it is rounded for p.v;
+//   - ctx an fp32 sum, rounded;
+//   - the output projection an fp32 sum plus bo plus the residual x, in
+//     fp32 and NOT rounded before the LayerNorm;
+//   - LayerNorm statistics in fp32, mean((h - mu)^2), rsqrt; rounded once.
+// The bias is any fp32 (B, L, L) view, broadcast dims read with stride 0
+// (the text encoder's (B,1,1,L) key mask, the graph self-attention's mask +
+// sprel (B,1,G,G)).
+//
+// Design: one C entry point launching a chain of four hand-written kernels
+// on the caller's stream (no cuBLAS):
+//   1. the q/k/v projections as one GEMM with N = 3D (csrc/dense.cuh,
+//      shared with K-PRENORM), writing q, k, v (3, M, D), M = B*L;
+//   2. attention, one block per (sample, head) (csrc/dense.cuh's
+//      head_attention_kernel, shared with K-PRENORM, with the bias and the
+//      normalise-first rounding): the head's K and V (L <= 224 rows of
+//      hd = 64, fp32) sit in shared memory, each warp takes whole query
+//      rows, lane j scores keys j, j+32, ... (up to 7), so the max and the
+//      sum are the row's own, and writes ctx (M, D);
+//   3. the output projection as a GEMM whose epilogue adds bo and the
+//      residual and stores the fp32 pre-norm row h (M, D);
+//   4. the row LayerNorm of h, one warp per row, rounded to x's dtype.
+// Steps 3 and 4 are two kernels, not one epilogue: a block that owned whole
+// rows (64 x 768) would leave 10 blocks for the text encoder's 640 rows on
+// 132 SMs; the fp32 h costs 8 bytes per element more of device traffic.
+//
+// What bounds it: at the text encoder's shape (B = 8, L = 80, D = 768) the
+// four projections are 2*M*D*4D = 3.0 GFLOP against ~11 MB of weights and
+// activations; at the TPU note's (160, 64) and (64, 200) 48 and 60 GFLOP.
+// In bf16 the tensor cores' rate bounds it, in fp32 the CUDA cores'. This
+// first version loads its GEMM tiles without a pipeline (mma.sync, not
+// wgmma/TMA) and keeps q/k/v, ctx and h in device memory between the
+// kernels; the L2 holds the weights.
+
+#include "dense.cuh"
+
+namespace {
+
+using etp::kTile;
+
+constexpr int kKeysPerLane = 7;
+constexpr int kMaxLen = 32 * kKeysPerLane;   // 224 >= RxR's 200 tokens
+
+template <typename T>
+int run_chain(const T* x, const float* const* w, const float* const* bias,
+              const float* ln_g, const float* ln_b, const float* attn_bias,
+              long long sbb, long long sbq, long long sbk, T* qkv, T* ctx,
+              float* h32, T* out, int B, int L, int D, int H, float eps,
+              float scale, cudaStream_t st) {
+  const int M = B * L;
+  etp::GemmArgs qkv_args{x, {w[0], w[1], w[2]}, {bias[0], bias[1], bias[2]},
+                         nullptr, qkv, M, D, D};
+  int err = etp::launch_gemm<T, T>(qkv_args, 3, st);
+  if (err) return err;
+
+  err = etp::launch_head_attention<T, kKeysPerLane, true>(
+      qkv, attn_bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+  if (err) return err;
+
+  etp::GemmArgs o_args{ctx, {w[3], w[3], w[3]}, {bias[3], bias[3], bias[3]},
+                       x, h32, M, D, D};
+  err = etp::launch_gemm<T, float>(o_args, 1, st);
+  if (err) return err;
+  return etp::launch_layer_norm<float, T>(h32, ln_g, ln_b, out, M, D, eps,
+                                          st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, out (B, L, D) and the scratch ctx (B*L, D) and qkv (3, B*L, D) in one
+// dtype (0 = float32, 1 = bfloat16), contiguous; h32 (B*L, D) fp32
+// scratch; the biases and ln_g, ln_b fp32 (D,); the weights fp32 (D, D) as
+// (out, in). attn_bias: fp32 with element strides (sbb, sbq, sbk) over
+// (B, L, L). Needs D = H*64 and 1 <= L <= 224. Returns the first
+// non-zero cudaGetLastError() of the chain, or -1 for arguments it does
+// not take.
+int etp_attention_block(const void* x, const void* wq, const void* bq,
+                        const void* wk, const void* bk, const void* wv,
+                        const void* bv, const void* wo, const void* bo,
+                        const void* ln_g, const void* ln_b,
+                        const void* attn_bias, long long sbb, long long sbq,
+                        long long sbk, void* qkv, void* ctx, void* h32,
+                        void* out, int dtype, int B, int L, int D, int H,
+                        float eps, float scale, void* stream) {
+  if (B < 1 || L < 1 || L > kMaxLen || H < 1 || D != H * etp::kHeadDim ||
+      D % kTile != 0 || !attn_bias)
+    return -1;
+  const float* w[4] = {static_cast<const float*>(wq),
+                       static_cast<const float*>(wk),
+                       static_cast<const float*>(wv),
+                       static_cast<const float*>(wo)};
+  const float* bias[4] = {static_cast<const float*>(bq),
+                          static_cast<const float*>(bk),
+                          static_cast<const float*>(bv),
+                          static_cast<const float*>(bo)};
+  const float* g = static_cast<const float*>(ln_g);
+  const float* b = static_cast<const float*>(ln_b);
+  const float* ab = static_cast<const float*>(attn_bias);
+  float* hp = static_cast<float*>(h32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_chain<float>(static_cast<const float*>(x), w, bias, g, b, ab,
+                            sbb, sbq, sbk, static_cast<float*>(qkv),
+                            static_cast<float*>(ctx), hp,
+                            static_cast<float*>(out), B, L, D, H, eps, scale,
+                            st);
+  if (dtype == 1)
+    return run_chain<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), w, bias, g, b, ab, sbb, sbq,
+        sbk, static_cast<__nv_bfloat16*>(qkv),
+        static_cast<__nv_bfloat16*>(ctx), hp,
+        static_cast<__nv_bfloat16*>(out), B, L, D, H, eps, scale, st);
+  return -1;
+}
+
+}  // extern "C"

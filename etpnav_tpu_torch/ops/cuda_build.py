@@ -25,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("attention", "attention_bwd", "heatmap_nms", "groupnorm",
-           "prenorm_attention")
+           "prenorm_attention", "attention_block")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -54,7 +54,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> str:
     """The library's path; its hash covers the source, every header of
-    csrc/ (philox.cuh is shared) and the flags."""
+    csrc/ (philox.cuh and dense.cuh are shared) and the flags."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:

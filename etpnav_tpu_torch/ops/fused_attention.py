@@ -10,7 +10,12 @@ block-diagonal cross-batch GEMM only fills the TPU's 128x128 matrix unit
 and is not carried over. K-ATT-BWD replaces `fused_bias_attention`'s
 custom VJP (:377-394). The CUDA C++ sources, `csrc/attention.cu` and
 `csrc/attention_bwd.cu`, say what bounds each kernel on an H100 and what
-its design does about it.
+its design does about it. K-ATT with `out_layout="head"` also replaces
+the TPU experiment `bdims_attention` (`tools/exp_attn_layout.py`), whose
+function is K-ATT's with a head-leading output. K-ATT-CHEAP
+(`attention_cheap`, the CHEAP instantiation in `csrc/attention.cu`)
+replaces the TPU experiment `cheap_attention` (`tools/exp_attn_pack.py`):
+bf16 logits and a constant-shift softmax with no max pass.
 
 Layout contract: q (B, H, Lq, hd), k and v (B, H, Lk, hd), in any
 strides whose last one is 1 — the natural projection output
@@ -18,9 +23,11 @@ strides whose last one is 1 — the natural projection output
 read in place. The output is (B, H, Lq, hd) laid out in memory as
 (B, Lq, H, hd), so `out.transpose(1, 2).reshape(B, Lq, H * hd)` feeds the
 output projection with no copy; the gradients dq, dk, dv take the same
-natural layout. The bias, when given, is fp32 and broadcastable to
-(B, Lq, Lk) (a 4-D bias must have a head dim of 1): it is shared by all
-heads, and broadcast dims are read with stride 0.
+natural layout. `attention_fwd(..., out_layout="head")` writes a
+contiguous head-leading (B, H, Lq, hd) output instead. The bias, when
+given, is fp32 and broadcastable to (B, Lq, Lk) (a 4-D bias must have a
+head dim of 1): it is shared by all heads, and broadcast dims are read
+with stride 0.
 
 Attention-prob dropout (training): the normalised probabilities are
 dropped, ctx = dropout(softmax(q.k^T * s + bias)) . v, with the keep bit
@@ -42,10 +49,15 @@ from etpnav_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64,)
+_OUT_LAYOUTS = ("natural", "head")
 
 #: launches of the CUDA kernels (wrappers) and calls of the plain versions
 attention_fwd_launches = cuda_build.LaunchCounter()
 attention_plain_calls = cuda_build.LaunchCounter()
+#: K-ATT launches with `out_layout="head"` (counted here, not above)
+attention_fwd_head_out_launches = cuda_build.LaunchCounter()
+attention_cheap_launches = cuda_build.LaunchCounter()
+attention_cheap_plain_calls = cuda_build.LaunchCounter()
 attention_bwd_launches = cuda_build.LaunchCounter()
 attention_bwd_plain_calls = cuda_build.LaunchCounter()
 
@@ -61,6 +73,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         [vp] * 5 + [i32] * 6 + [i64] * 15
         + [ctypes.c_float, vp, ctypes.c_uint, ctypes.c_float, vp, vp])
     lib.etp_attention_fwd.restype = ctypes.c_int
+    lib.etp_attention_cheap.argtypes = (
+        [vp] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, vp])
+    lib.etp_attention_cheap.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -147,19 +162,41 @@ def dropout_keep_mask(seed_offset: torch.Tensor, B: int, H: int, Lq: int,
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _check_layout(out_layout: str) -> None:
+    if out_layout not in _OUT_LAYOUTS:
+        raise ValueError(f"out_layout {out_layout!r} not in {_OUT_LAYOUTS}")
+
+
+def _empty_out(q: torch.Tensor, out_layout: str) -> torch.Tensor:
+    """An uninitialised (B, H, Lq, hd) output laid out in memory as
+    (B, Lq, H, hd) ("natural") or (B, H, Lq, hd) ("head")."""
+    B, H, Lq, hd = q.shape
+    if out_layout == "head":
+        return torch.empty(B, H, Lq, hd, dtype=q.dtype, device=q.device)
+    return torch.empty(B, Lq, H, hd, dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], scale: float,
                     p_drop: float = 0.0,
                     seed_offset: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, out_layout: str = "natural"):
     """The plain PyTorch version of K-ATT, with the kernel's numerics:
     fp32 logits, max and sum; unnormalised p rounded to the input dtype
     before p.v (fp32 accumulation), a dropped p zeroed and a kept one
     scaled by 1/keep; the division by the sum (of every key) last. With
+    `out_layout="head"` the output is contiguous, as the kernel's; the
+    natural case keeps the strides the arithmetic gives. With
     `return_lse`, also the fp32 row log-sum-exp (B, H, Lq)."""
+    _check_layout(out_layout)
     attention_plain_calls.add()
-    return softmax_attention(q, k, v, bias, scale, p_drop, seed_offset,
-                             return_lse)
+    res = softmax_attention(q, k, v, bias, scale, p_drop, seed_offset,
+                            return_lse)
+    if out_layout == "natural":
+        return res
+    out = (res[0] if return_lse else res).contiguous()
+    return (out, res[1]) if return_lse else out
 
 
 def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -293,22 +330,24 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor], scale: float,
                   p_drop: float = 0.0,
                   seed_offset: Optional[torch.Tensor] = None,
-                  return_lse: bool = False):
+                  return_lse: bool = False, out_layout: str = "natural"):
     """softmax(q.k^T * scale + bias) . v per head, with attention-prob
-    dropout when `seed_offset` is given. CPU tensors run the plain version;
-    CUDA tensors launch the kernel or raise. With `return_lse`, returns
-    (out, fp32 row log-sum-exp (B, H, Lq))."""
+    dropout when `seed_offset` is given. The (B, H, Lq, hd) output lies in
+    memory as (B, Lq, H, hd) with `out_layout="natural"`, or contiguous
+    with `"head"`. CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise. With `return_lse`, returns (out, fp32 row
+    log-sum-exp (B, H, Lq))."""
+    _check_layout(out_layout)
     if not _cuda("attention_fwd", q):
         return attention_plain(q, k, v, bias, scale, p_drop, seed_offset,
-                               return_lse)
+                               return_lse, out_layout)
     _check_qkv("attention_fwd", q, k, v)
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     bias_ptr, sb, _keep_alive = _bias_operand("attention_fwd", bias, q, Lk)
     seed_ptr, threshold, inv_keep = _dropout_operand(
         "attention_fwd", p_drop, seed_offset, q.device)
-    out = torch.empty(B, Lq, H, hd, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _empty_out(q, out_layout)
     lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     lib = cuda_build.load("attention")
@@ -323,8 +362,68 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             seed_ptr, threshold, inv_keep,
             None if lse is None else lse.data_ptr(), stream)
     cuda_build.check(err, "attention_fwd")
-    attention_fwd_launches.add()
+    if out_layout == "head":
+        attention_fwd_head_out_launches.add()
+    else:
+        attention_fwd_launches.add()
     return (out, lse) if return_lse else out
+
+
+def _check_cheap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"attention_cheap: q must be (B, H, Lq, hd), got "
+                         f"{tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"attention_cheap: {name} is {t.dtype}; "
+                             "K-ATT-CHEAP takes bfloat16 only")
+
+
+def attention_cheap_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The plain PyTorch version of K-ATT-CHEAP (bf16), with the kernel's
+    and the TPU tool's rounding points: logits = bf16(fp32 sum of q.k),
+    times bf16(scale) and minus 10 in bf16, p = bf16(exp(fp32)); the sum
+    and p.v in fp32; out = bf16(ctx / sum). No max is subtracted."""
+    _check_cheap(q, k, v)
+    attention_cheap_plain_calls.add()
+    bf = torch.bfloat16
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()).to(bf)
+    logits = logits * torch.tensor(scale, dtype=bf)
+    logits = logits - torch.tensor(10.0, dtype=bf)
+    p = torch.exp(logits.float()).to(bf).float()
+    ctx = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return (ctx / p.sum(-1, keepdim=True)).to(bf)
+
+
+def attention_cheap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Unbiased attention with bf16 logits and a constant-shift softmax
+    (`attention_cheap_plain` gives its arithmetic), q (B, H, Lq, hd), k
+    and v (B, H, Lk, hd) bf16 in any strides with a contiguous head dim;
+    returns a contiguous (B, H, Lq, hd). This is the TPU kernel's pack = 1
+    function: its `pack` only put samples into one 128x128 matrix tile,
+    and the cross blocks' weights (e^-40 each) stay below one bf16 ulp of
+    the output, so it has no counterpart here. CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _check_cheap(q, k, v)
+    if not _cuda("attention_cheap", q):
+        return attention_cheap_plain(q, k, v, scale)
+    _check_qkv("attention_cheap", q, k, v)
+    B, H, Lq, hd = q.shape
+    Lk = k.shape[2]
+    out = _empty_out(q, "head")
+    lib = cuda_build.load("attention")
+    sq, sk, sv, so = q.stride(), k.stride(), v.stride(), out.stride()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.etp_attention_cheap(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Lq, Lk, hd, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0],
+            sv[1], sv[2], so[0], so[1], so[2], float(scale), stream)
+    cuda_build.check(err, "attention_cheap")
+    attention_cheap_launches.add()
+    return out
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -428,8 +428,12 @@ def test_wrappers_reject_other_devices(rng):
 
 def test_prenorm_kernel_path_calls_no_library_gemm():
     """The projections of K-PRENORM are the kernel's own: neither its
-    CUDA source nor its wrapper calls cuBLAS, torch.matmul or F.linear."""
-    src = (ROOT / "etpnav_tpu_torch/csrc/prenorm_attention.cu").read_text()
+    CUDA source, nor the GEMM header it includes, nor its wrapper calls
+    cuBLAS, torch.matmul or F.linear."""
+    csrc = ROOT / "etpnav_tpu_torch/csrc"
+    src = (csrc / "prenorm_attention.cu").read_text()
+    assert '#include "dense.cuh"' in src
+    src += (csrc / "dense.cuh").read_text()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     assert "cublas" not in code.lower()
     assert "mma.sync" in code

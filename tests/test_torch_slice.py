@@ -228,7 +228,12 @@ def test_port_imports_no_jax():
             "etpnav_tpu_torch/env/geometric.py",
             "etpnav_tpu_torch/env/protocol.py",
             "etpnav_tpu_torch/metrics.py",
-            "etpnav_tpu_torch/utils/trajectory.py"} <= names
+            "etpnav_tpu_torch/utils/trajectory.py",
+            "etpnav_tpu_torch/ops/fused_block.py",
+            "etpnav_tpu_torch/ops/fused_attention.py",
+            "etpnav_tpu_torch/tools/__init__.py",
+            "etpnav_tpu_torch/tools/exp_attn_layout.py",
+            "etpnav_tpu_torch/tools/exp_attn_pack.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
