@@ -14,7 +14,9 @@ Phases, each reported on its own lines:
   3. every kernel against its plain PyTorch version on the card, at the
      serving path's shapes, in fp32 and bf16, with its time, the plain
      version's, the PyTorch library call's where there is one, and the
-     card's bound for the same work: K-ATT and K-NMS; K-GN at every
+     card's bound for the same work (the attention kernels and SDPA also
+     with their device time alone, `kernel_ms`, from torch.profiler): K-ATT
+     (bf16 on tensor cores, fp32 on CUDA cores) and K-NMS; K-GN at every
      GroupNorm shape of the fused depth trunk at B = 96 (recorded from one
      fused trunk pass on the card); K-PRENORM at the CLIP shape
      (96, 50, 768) beside the port's unfused CLIP attention half-block;
@@ -24,8 +26,9 @@ Phases, each reported on its own lines:
   3c. K-ATT-BWD against its plain version at the learn step's four
      attention shapes (text, pano, cross and graph self-attention at
      G = 96, B*T = 160), fp32 and bf16, with and without dropout 0.1,
-     d(bias) for the graph self-attention; K-ATT + K-ATT-BWD beside SDPA
-     forward + backward;
+     d(bias) for the graph self-attention, two launches bit-equal; K-ATT +
+     K-ATT-BWD beside SDPA forward + backward, K-ATT-BWD beside SDPA's
+     backward alone;
   4. the serving slice: `NavServer(r2r_config(), Agent(device="cuda"),
      max_batch=8)` from seeded random weights keeps 8 sessions live until
      at least 40 steps are served; every launch count must be exactly
@@ -48,7 +51,9 @@ Phases, each reported on its own lines:
      profiled learn step;
   7b. the learn step's loss and every planner gradient at full R2R width
      in fp32 with dropout off, card (kernels) against CPU (plain
-     versions), on 2 envs x 3 steps of the recorded interval;
+     versions), on 2 envs x 3 steps of the recorded interval; then the
+     same step in bf16 on the card (tensor-core K-ATT and K-ATT-BWD)
+     against the fp32 one, launches exact;
   8. K-BLOCK (the post-norm attention sub-block, `ops/fused_block.py`) on
      the model's own layers: the attention block of each of the 9
      text-encoder layers on the hidden states `forward_txt` feeds it (8
@@ -133,6 +138,29 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20, tries: int = 3) -> float:
+    """Device time per call of the kernels fn() launches, from
+    torch.profiler's CUDA kernel events over `iters` calls: the kernels'
+    own time, without the host cost of the wrapper around them. Now and
+    then the profiler hands back no device event at all (seen once in
+    ~150 profiles on the H100): that window is profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError(f"kernel_ms: the profiler saw no device time in "
+                         f"{tries} windows")
 
 
 def bound_ms(nbytes: int, flops: float, dtype) -> tuple:
@@ -237,22 +265,29 @@ def check_attention(card: str) -> dict:
                 raise AssertionError(f"K-ATT {name} {dtype}: max abs err "
                                      f"{err} > {TOL[dtype]}")
             ms = cuda_ms(lambda: attention_fwd(q, k, v, bias, scale))
+            k_ms = kernel_ms(lambda: attention_fwd(q, k, v, bias, scale))
             plain_ms = cuda_ms(lambda: attention_plain(q, k, v, bias,
                                                        scale))
             mask = None if bias is None else bias.to(dtype)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=scale))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)
+
+            lib_ms, lib_k_ms = cuda_ms(sdpa), kernel_ms(sdpa)
             nbytes, flops = attention_work(q, k, v, bias)
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             key = f"{name}/{str(dtype).split('.')[-1]}"
             rows[key] = {"shape": [list(q.shape), list(k.shape)],
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_kernel_ms": lib_k_ms, "bound_ms": b_ms,
                          "bound_by": b_by}
             log(f"K-ATT {key:28s} q{tuple(q.shape)} k{tuple(k.shape)} "
-                f"err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-                f"[{card}]")
+                f"err={err:.3g} ms={ms:.4f} kernel_ms={k_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"sdpa_kernel_ms={lib_k_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}) [{card}]")
     return rows
 
 
@@ -329,26 +364,35 @@ def check_attention_dropout(card: str) -> dict:
             if err > TOL[dtype]:
                 raise AssertionError(f"K-ATT dropout {name} {dtype}: max abs"
                                      f" err {err} > {TOL[dtype]}")
-            ms = cuda_ms(lambda: attention_fwd(q, k, v, bias, scale, 0.1,
-                                               so, return_lse=True))
+            def ours():
+                return attention_fwd(q, k, v, bias, scale, 0.1, so,
+                                     return_lse=True)
+
+            ms, k_ms = cuda_ms(ours), kernel_ms(ours)
             plain_ms = cuda_ms(lambda: attention_plain(
                 q, k, v, bias, scale, 0.1, so, return_lse=True), iters=5,
                 warmup=1)
             mask = bias.to(dtype)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, dropout_p=0.1, scale=scale))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, dropout_p=0.1, scale=scale)
+
+            lib_ms, lib_k_ms = cuda_ms(sdpa), kernel_ms(sdpa)
             nbytes, flops = attention_work(q, k, v, bias)
             b_ms, b_by = bound_ms(nbytes + 4 * lse.numel(), flops, dtype)
             key = f"{name}/{str(dtype).split('.')[-1]}"
             rows[key] = {"shape": [list(q.shape), list(k.shape)],
                          "max_abs_err": err, "lse_err": lse_err, "ms": ms,
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "kernel_ms": k_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_kernel_ms": lib_k_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
             log(f"K-ATT dropout 0.1 {key:22s} q{tuple(q.shape)} "
                 f"k{tuple(k.shape)} err={err:.3g} lse_err={lse_err:.3g} "
-                f"ms={ms:.4f} (with lse) plain_ms={plain_ms:.4f} "
-                f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
-                f"p_drop=0 bitwise = serving [{card}]")
+                f"ms={ms:.4f} kernel_ms={k_ms:.4f} (with lse) "
+                f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"sdpa_kernel_ms={lib_k_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}); p_drop=0 bitwise = serving [{card}]")
     return rows
 
 
@@ -382,10 +426,14 @@ def attention_bwd_work(q, k, bias, dropout: bool, dbias: bool):
 def check_attention_bwd(card: str, G: int = 96) -> dict:
     """K-ATT-BWD against its plain version on the card at the learn step's
     four attention shapes, fp32 and bf16, with and without dropout 0.1;
-    d(bias) where the learn step takes it (graph self-attention). Times:
-    the kernel, the plain version, the bound, and K-ATT + K-ATT-BWD
-    (forward + backward through AttentionFn) beside SDPA forward +
-    backward with the same float mask and dropout rate."""
+    d(bias) where the learn step takes it (graph self-attention). A second
+    launch on the same inputs must give bit-equal gradients (d(bias) is
+    summed over the heads in a fixed order). Times: the kernel (CUDA
+    events around wrapper calls, and its device time from the profiler),
+    the plain version, the bound, SDPA's backward alone on a retained
+    forward (torch.autograd.grad), and K-ATT + K-ATT-BWD (forward +
+    backward through AttentionFn) beside SDPA forward + backward with the
+    same float mask and dropout rate."""
     import torch.nn.functional as F
 
     from etpnav_tpu_torch.ops.fused_attention import (
@@ -412,8 +460,15 @@ def check_attention_bwd(card: str, G: int = 96) -> dict:
                 args = (q, k, v, bias, out, lse, dout, scale, p_drop, so,
                         dbias)
                 got = attention_bwd(*args)
+                again = attention_bwd(*args)
                 want = attention_bwd_plain(*args)
                 torch.cuda.synchronize()
+                for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got,
+                                       again):
+                    if b is not None and not torch.equal(a, b):
+                        raise AssertionError(
+                            f"K-ATT-BWD {name} {dtype} p_drop={p_drop} "
+                            f"{gname}: two launches differ")
                 errs = {}
                 for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got,
                                        want):
@@ -428,6 +483,7 @@ def check_attention_bwd(card: str, G: int = 96) -> dict:
                             f"{gname}: max abs err {err} > {tol}")
                     errs[gname] = err
                 ms = cuda_ms(lambda: attention_bwd(*args), iters=20)
+                k_ms = kernel_ms(lambda: attention_bwd(*args))
                 plain_ms = cuda_ms(lambda: attention_bwd_plain(*args),
                                    iters=5, warmup=1)
                 qg, kg, vg = (t.detach().clone().requires_grad_()
@@ -447,7 +503,22 @@ def check_attention_bwd(card: str, G: int = 96) -> dict:
                     o.backward(dout)
 
                 pair_ms = cuda_ms(ours, iters=10)
+                pair_k_ms = kernel_ms(ours, iters=10)
                 lib_ms = cuda_ms(sdpa, iters=10)
+                lib_k_ms = kernel_ms(sdpa, iters=10)
+                # SDPA's backward alone, on one retained forward
+                leaves = (qg, kg, vg) + ((bg,) if dbias else ())
+                o_ret = F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=mask.to(dtype), dropout_p=p_drop,
+                    scale=scale)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(o_ret, leaves, dout,
+                                               retain_graph=True)
+
+                lib_bwd_ms = cuda_ms(sdpa_bwd, iters=10)
+                lib_bwd_k_ms = kernel_ms(sdpa_bwd, iters=10)
+                del o_ret
                 nbytes, flops = attention_bwd_work(q, k, bias, bool(p_drop),
                                                    dbias)
                 b_ms, b_by = bound_ms(nbytes, flops, dtype)
@@ -455,14 +526,22 @@ def check_attention_bwd(card: str, G: int = 96) -> dict:
                        f"/p{p_drop}{'/dbias' if dbias else ''}")
                 rows[key] = {"shape": [list(q.shape), list(k.shape)],
                              "max_abs_err": max(errs.values()),
-                             "errs": errs, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by,
-                             "fwd_bwd_ms": pair_ms, "library_ms": lib_ms}
+                             "errs": errs, "ms": ms, "kernel_ms": k_ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "fwd_bwd_ms": pair_ms,
+                             "fwd_bwd_kernel_ms": pair_k_ms,
+                             "library_ms": lib_ms,
+                             "library_kernel_ms": lib_k_ms,
+                             "library_bwd_ms": lib_bwd_ms,
+                             "library_bwd_kernel_ms": lib_bwd_k_ms}
                 log(f"K-ATT-BWD {key:30s} q{tuple(q.shape)} "
                     f"k{tuple(k.shape)} errs={json.dumps(errs)} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by}) fwd+bwd ms={pair_ms:.4f} "
-                    f"sdpa fwd+bwd ms={lib_ms:.4f} [{card}]")
+                    f"ms={ms:.4f} kernel_ms={k_ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"fwd+bwd ms={pair_ms:.4f} (kernels {pair_k_ms:.4f}) "
+                    f"sdpa fwd+bwd ms={lib_ms:.4f} (kernels {lib_k_ms:.4f}) "
+                    f"sdpa bwd ms={lib_bwd_ms:.4f} sdpa bwd kernel_ms="
+                    f"{lib_bwd_k_ms:.4f}; bitwise equal twice [{card}]")
     return rows
 
 
@@ -1036,10 +1115,15 @@ def profile_learn_step(card: str, tr, batch) -> dict:
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    # the attention kernels' own share, wherever they rank
+    attn = {e.key[e.key.find("attention_"):].split("(")[0]:
+            [e.self_device_time_total / 1e3, e.count]
+            for e in ev if "attention_" in e.key}
+    log(f"  attention kernels of the step: {json.dumps(attn)}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "device_ops": sum(e.count for e in ev),
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                    for e in top[:6]]}
+                    for e in top[:6]], "attention": attn}
 
 
 # K-BLOCK against the port's unfused `self_attention_block` (cuBLAS GEMMs,
@@ -1057,12 +1141,35 @@ BLOCK_UNFUSED_ULPS = 4
 # through the forward and backward of 9 + 2 + 4 BERT layers at full
 # width, the aggregation scatter and the AdamW-free gradient itself.
 LEARN_REL_TOL = 2e-4
+# the same step in bf16 (the stacks' activations, so every attention runs
+# K-ATT's and K-ATT-BWD's tensor-core kernels) against fp32 on the card,
+# beside the same bf16 step with the attention's plain versions on the
+# card. Per tensor whose gradient norm is at least BF16_LIVE of the
+# largest: ||g_bf16 - g_fp32|| / ||g_fp32|| <= BF16_GRAD_L2. A max-norm
+# bound relative to each tensor's largest gradient does not hold for the
+# bf16 model itself: with random weights some LayerNorms see nearly
+# constant rows, so their backward cancels and bf16 moves single elements
+# of the tensors behind them (the SAP head's dense1) by 40-60% of their
+# largest, with the plain versions as with the kernels. The L2 ratio of
+# the bf16 step, kernels or plain, is ~0.15 per tensor and ~0.1 overall;
+# a kernel fault such as dK written to the wrong head puts the affected
+# tensors above 1. The kernels' overall ratio must also stay within
+# BF16_VS_PLAIN times the plain versions' (only their sum order and p's
+# running-max rounding point differ). Tensors below BF16_LIVE carry
+# rounding noise (the key projections' biases, whose exact gradient is 0).
+BF16_GRAD_L2 = 0.3
+BF16_LIVE = 1e-2
+BF16_VS_PLAIN = 1.5
+# the bf16 loss against the fp32 one: a mean of cross entropies over
+# logits that carry bf16 roundings (2^-9 relative each); seen up to 1.2e-3
+BF16_LOSS_REL = 5e-3
 
 
-def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
+def learn_parity(card: str, cfg, cfg32, tr, rec, counters) -> dict:
     """Phase 7b: compute_il_loss and its gradients at full R2R width in
     fp32 with dropout off, on the card (kernels) and on the CPU (plain
-    versions), for 2 envs x 3 steps of the recorded interval."""
+    versions), for 2 envs x 3 steps of the recorded interval; then the
+    same step on the card in bf16 (`cfg`) against the card's fp32 one."""
     from etpnav_tpu_torch.training.finetune import (
         compute_il_loss,
         record_to_batch,
@@ -1075,11 +1182,16 @@ def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
     gpu_planner = tr.params.planner
     cpu_planner = copy.deepcopy(gpu_planner).cpu()
     out = {}
-    for name, pl, dev in (("cpu", cpu_planner, "cpu"),
-                          ("gpu", gpu_planner, "cuda")):
+    for name, pl, dev, step_cfg in (("cpu", cpu_planner, "cpu", cfg32),
+                                    ("gpu", gpu_planner, "cuda", cfg32),
+                                    ("gpu_bf16", gpu_planner, "cuda", cfg),
+                                    ("gpu_bf16_plain", gpu_planner, "cuda",
+                                     cfg)):
+        if name == "gpu_bf16_plain":
+            restore = attention_on_plain_versions()
         pl.zero_grad(set_to_none=True)
         before = {k: c.value for k, c in counters.items()}
-        loss = compute_il_loss(pl, cfg32, record_to_batch(small, dev))
+        loss = compute_il_loss(pl, step_cfg, record_to_batch(small, dev))
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1087,11 +1199,20 @@ def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
         out[name] = (loss.item(), {n: p.grad.detach().cpu()
                                    for n, p in pl.named_parameters()
                                    if p.grad is not None}, launches)
+        if name == "gpu_bf16_plain":
+            restore()
     want_l = {k: 0 for k in counters}
     want_l["attention_fwd"] = want_l["attention_bwd"] = LEARN_ATTENTIONS
-    if out["gpu"][2] != want_l:
-        raise AssertionError(f"learn parity: card launches {out['gpu'][2]} "
-                             f"!= {want_l}")
+    for name in ("gpu", "gpu_bf16"):
+        if out[name][2] != want_l:
+            raise AssertionError(f"learn parity: {name} launches "
+                                 f"{out[name][2]} != {want_l}")
+    want_p = {k: 0 for k in counters}
+    want_p["attention_plain"] = want_p["attention_bwd_plain"] = \
+        LEARN_ATTENTIONS
+    if out["gpu_bf16_plain"][2] != want_p:
+        raise AssertionError(f"learn parity: plain bf16 step launches "
+                             f"{out['gpu_bf16_plain'][2]} != {want_p}")
     l_cpu, g_cpu, _ = out["cpu"]
     l_gpu, g_gpu, _ = out["gpu"]
     loss_rel = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-12)
@@ -1120,6 +1241,60 @@ def learn_parity(card: str, cfg32, tr, rec, counters) -> dict:
            "worst_grad": rel[1], "launches": out["gpu"][2]}
     log(f"learn parity (fp32, 2 envs x 3 steps, card vs CPU): "
         f"{json.dumps(res)} [{card}]")
+    res["bf16"] = bf16_learn_parity(card, out["gpu"], out["gpu_bf16"],
+                                    out["gpu_bf16_plain"])
+    return res
+
+
+def attention_on_plain_versions():
+    """Send K-ATT's and K-ATT-BWD's wrappers to their plain versions, on
+    the card's tensors too; returns the function that undoes it."""
+    from etpnav_tpu_torch.ops import fused_attention as fa
+    fwd, bwd = fa.attention_fwd, fa.attention_bwd
+    fa.attention_fwd, fa.attention_bwd = fa.attention_plain, \
+        fa.attention_bwd_plain
+
+    def restore():
+        fa.attention_fwd, fa.attention_bwd = fwd, bwd
+    return restore
+
+
+def bf16_learn_parity(card: str, fp32, bf16, bf16_plain) -> dict:
+    """The bf16 learn step's loss and gradients, with the kernels and with
+    the plain versions, against the fp32 step, all on the card (phase
+    7b)."""
+    (l32, g32, _), (l16, g16, launches), (lp, gp, _) = fp32, bf16, bf16_plain
+    if not set(g32) == set(g16) == set(gp):
+        raise AssertionError("bf16 learn parity: gradient sets differ")
+    norms = {n: g.norm().item() for n, g in g32.items()}
+    live = [n for n in g32 if norms[n] >= BF16_LIVE * max(norms.values())]
+    ref = sum(norms[n] ** 2 for n in g32) ** 0.5
+
+    def l2(g):
+        for n in g:
+            if not torch.isfinite(g[n]).all():
+                raise AssertionError(f"bf16 learn parity: grad {n} not "
+                                     "finite")
+        per = {n: ((g[n] - g32[n]).norm() / norms[n]).item() for n in live}
+        total = sum(((g[n] - g32[n]) ** 2).sum().item()
+                    for n in g32) ** 0.5 / ref
+        return per, total
+
+    per, total = l2(g16)
+    per_p, total_p = l2(gp)
+    worst = sorted(per, key=per.get)[-3:]
+    res = {"loss_fp32": l32, "loss_bf16": l16, "loss_bf16_plain": lp,
+           "loss_rel": abs(l16 - l32) / max(abs(l32), 1e-12),
+           "grad_tensors": len(g32), "live_tensors": len(live),
+           "worst_l2_rel": {n: per[n] for n in worst},
+           "worst_l2_rel_plain": max(per_p.values()),
+           "total_l2_rel": total, "total_l2_rel_plain": total_p,
+           "launches": launches}
+    log(f"learn parity (bf16 vs fp32, both on the card; tensor-core "
+        f"attention, and its plain versions): {json.dumps(res)} [{card}]")
+    if (per[worst[-1]] > BF16_GRAD_L2 or res["loss_rel"] > BF16_LOSS_REL
+            or total > BF16_VS_PLAIN * total_p):
+        raise AssertionError(f"bf16 learn parity: {res}")
     return res
 
 
@@ -1355,14 +1530,18 @@ def check_head_out_and_cheap(card: str) -> dict:
         key = f"head_out/{str(dtype).split('.')[-1]}"
         nbytes, flops = attention_work(q, k, v, None)
         b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        def ours():
+            return attention_fwd(q, k, v, None, scale, out_layout="head")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
         rows[key] = {
             "shape": [B, H, L, hd], "max_abs_err": err,
-            "ms": cuda_ms(lambda: attention_fwd(q, k, v, None, scale,
-                                                out_layout="head")),
+            "ms": cuda_ms(ours), "kernel_ms": kernel_ms(ours),
             "plain_ms": cuda_ms(lambda: attention_plain(
                 q, k, v, None, scale, out_layout="head"), iters=10),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=scale)),
+            "library_ms": cuda_ms(sdpa), "library_kernel_ms": kernel_ms(sdpa),
             "bound_ms": b_ms, "bound_by": b_by}
     q, k, v = (t.to(torch.bfloat16).contiguous() for t in nat)
     got = attention_cheap(q, k, v, scale)
@@ -1374,25 +1553,38 @@ def check_head_out_and_cheap(card: str) -> dict:
         raise AssertionError(f"K-ATT-CHEAP: err {err} > {tol}")
     nbytes, flops = attention_work(q, k, v, None)
     b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+    def cheap():
+        return attention_cheap(q, k, v, scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
     rows["cheap/bfloat16"] = {
         "shape": [B, H, L, hd], "max_abs_err": err, "tol": tol,
-        "ms": cuda_ms(lambda: attention_cheap(q, k, v, scale)),
+        "ms": cuda_ms(cheap), "kernel_ms": kernel_ms(cheap),
         "plain_ms": cuda_ms(lambda: attention_cheap_plain(q, k, v, scale),
                             iters=10),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale)),
+        "library_ms": cuda_ms(sdpa), "library_kernel_ms": kernel_ms(sdpa),
         "bound_ms": b_ms, "bound_by": b_by}
     for key, r in rows.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         log(f"{key:18s} (B,H,L,hd)={tuple(r['shape'])} "
             f"err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} sdpa_ms={lib} "
+            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"sdpa_ms={lib} sdpa_kernel_ms={r['library_kernel_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
     return rows
 
 
 # ---------------------------------------------------------------------------
+
+# the bf16 attention kernels' design, and their times before it (ms per
+# wrapper call at the rows' shapes, PERF.md section 6: chip_smoke on an
+# NVIDIA H100 80GB HBM3 at 700 W, PR 1-4)
+TC_DESIGN = "tensor cores (mma.sync)"
+MS_PR4 = {"attention_fwd": 0.1269, "attention_bwd": 1.9447,
+          "attention_fwd_head_out": 0.5008, "attention_cheap": 0.4912}
 
 # launches per call of each served program: K-ATT 16 per perceive (11
 # CLIP blocks, the cls row, 2 waypoint, 2 pano), 8 per navigation scoring
@@ -1563,7 +1755,7 @@ def main() -> int:
     train_res, trainer, rec = train_phase(card, cfg, counters)
     log(f"phase 7 done at {time.perf_counter() - T0:.0f} s")
     # phase 7b
-    learn_par = learn_parity(card, cfg32, trainer, rec, counters)
+    learn_par = learn_parity(card, cfg, cfg32, trainer, rec, counters)
     del trainer
     torch.cuda.empty_cache()
     log(f"phase 7b done at {time.perf_counter() - T0:.0f} s")
@@ -1599,7 +1791,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in att_rows.values()),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": a["library_ms"],
-         "at": "clip_natural bf16 q/k/v (96,12,50,64)"},
+         "at": "clip_natural bf16 q/k/v (96,12,50,64)",
+         "design": TC_DESIGN, "kernel_ms": a["kernel_ms"],
+         "library_kernel_ms": a["library_kernel_ms"],
+         "ms_pr4": MS_PR4["attention_fwd"]},
         {"name": "heatmap_nms_fused", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
@@ -1645,8 +1840,16 @@ def main() -> int:
          "library_ms": bw["library_ms"],
          "at": "graph self-attention q/k/v (160,12,96,64) bf16 + sprel "
                "bias, dropout 0.1, dbias; library_ms is SDPA forward + "
-               "backward, beside fwd_bwd_ms (K-ATT + K-ATT-BWD)",
-         "fwd_bwd_ms": bw["fwd_bwd_ms"]},
+               "backward, beside fwd_bwd_ms (K-ATT + K-ATT-BWD through "
+               "AttentionFn; *_kernel_ms their device time); "
+               "library_bwd_ms SDPA's backward alone",
+         "fwd_bwd_ms": bw["fwd_bwd_ms"],
+         "fwd_bwd_kernel_ms": bw["fwd_bwd_kernel_ms"],
+         "library_kernel_ms": bw["library_kernel_ms"], "design": TC_DESIGN,
+         "kernel_ms": bw["kernel_ms"],
+         "library_bwd_ms": bw["library_bwd_ms"],
+         "library_bwd_kernel_ms": bw["library_bwd_kernel_ms"],
+         "ms_pr4": MS_PR4["attention_bwd"]},
         {"name": "attention_block", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention_block.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:686 "
@@ -1671,7 +1874,10 @@ def main() -> int:
          "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
          "library_ms": t1["library_ms"],
          "at": "q/k/v (384,50,12,64) natural, out (384,12,50,64) bf16; "
-               "library_ms is SDPA on the same operands"},
+               "library_ms is SDPA on the same operands",
+         "design": TC_DESIGN, "kernel_ms": t1["kernel_ms"],
+         "library_kernel_ms": t1["library_kernel_ms"],
+         "ms_pr4": MS_PR4["attention_fwd_head_out"]},
         {"name": "attention_cheap", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "tools/exp_attn_pack.py:86 cheap_attention",
@@ -1682,7 +1888,10 @@ def main() -> int:
          "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
          "library_ms": t2["library_ms"],
          "at": "q/k/v (384,12,50,64) head-leading bf16; library_ms is SDPA "
-               "on the same operands (softmax(x - 10) = softmax(x))"},
+               "on the same operands (softmax(x - 10) = softmax(x))",
+         "design": TC_DESIGN, "kernel_ms": t2["kernel_ms"],
+         "library_kernel_ms": t2["library_kernel_ms"],
+         "ms_pr4": MS_PR4["attention_cheap"]},
     ]
     log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
         f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")

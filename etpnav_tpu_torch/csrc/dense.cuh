@@ -4,8 +4,9 @@
 // over fp32 (out, in) weights that are rounded to A's dtype as they are
 // loaded, and the attention of one (sample, head) on the natural layout of
 // the GEMM's q/k/v output. Header only; each source launches the
-// instantiations it needs. cuda_build hashes every .cuh into each
-// library's name, so an edit here rebuilds both.
+// instantiations it needs; K-ATT and K-ATT-BWD take etp::mma_bf16 through
+// attention_tc.cuh. cuda_build hashes every .cuh into each library's
+// name, so an edit here rebuilds them all.
 //
 // GEMM: 64x64 output tiles over k-slabs of 32 (bf16: tensor cores through
 // mma.sync m16n8k16, fp32 accumulate, four warps of 32x32) or 16 (fp32:

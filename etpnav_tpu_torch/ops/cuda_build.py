@@ -54,7 +54,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> str:
     """The library's path; its hash covers the source, every header of
-    csrc/ (philox.cuh and dense.cuh are shared) and the flags."""
+    csrc/ (philox.cuh, dense.cuh and attention_tc.cuh are shared) and the
+    flags."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:

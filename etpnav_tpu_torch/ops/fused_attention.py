@@ -10,7 +10,8 @@ block-diagonal cross-batch GEMM only fills the TPU's 128x128 matrix unit
 and is not carried over. K-ATT-BWD replaces `fused_bias_attention`'s
 custom VJP (:377-394). The CUDA C++ sources, `csrc/attention.cu` and
 `csrc/attention_bwd.cu`, say what bounds each kernel on an H100 and what
-its design does about it. K-ATT with `out_layout="head"` also replaces
+its design does about it: bf16 launches run on tensor cores (mma.sync),
+fp32 launches on CUDA cores. K-ATT with `out_layout="head"` also replaces
 the TPU experiment `bdims_attention` (`tools/exp_attn_layout.py`), whose
 function is K-ATT's with a head-leading output. K-ATT-CHEAP
 (`attention_cheap`, the CHEAP instantiation in `csrc/attention.cu`)
@@ -20,7 +21,10 @@ bf16 logits and a constant-shift softmax with no max pass.
 Layout contract: q (B, H, Lq, hd), k and v (B, H, Lk, hd), in any
 strides whose last one is 1 — the natural projection output
 `x.view(B, L, H, hd).transpose(1, 2)` and a head-leading tensor are both
-read in place. The output is (B, H, Lq, hd) laid out in memory as
+read in place. On a CUDA device, bf16 q, k, v (and the backward's out
+and dout) need a 16-byte-aligned base and strides that are multiples of
+8 elements, which every projection output and its views have; the
+wrappers raise otherwise. The output is (B, H, Lq, hd) laid out in memory as
 (B, Lq, H, hd), so `out.transpose(1, 2).reshape(B, Lq, H * hd)` feeds the
 output projection with no copy; the gradients dq, dk, dv take the same
 natural layout. `attention_fwd(..., out_layout="head")` writes a
@@ -81,11 +85,11 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     i32, vp = ctypes.c_int, ctypes.c_void_p
     lib.etp_attention_bwd.argtypes = (
-        [vp] * 12 + [i32] * 6
+        [vp] * 11 + [i32] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp,
            ctypes.c_uint, ctypes.c_float, vp])
     lib.etp_attention_bwd.restype = ctypes.c_int
-    lib.etp_attention_bwd_max_lk.argtypes = []
+    lib.etp_attention_bwd_max_lk.argtypes = [i32] * 3
     lib.etp_attention_bwd_max_lk.restype = ctypes.c_int
 
 
@@ -139,12 +143,14 @@ def dropout_keep_mask(seed_offset: torch.Tensor, B: int, H: int, Lq: int,
                       Lk: int, p_drop: float,
                       device: Optional[torch.device] = None) -> torch.Tensor:
     """The kernels' keep bits, (B, H, Lq, Lk) bool: element (b, h, q, k)
-    is kept iff the first word of Philox4x32-10 at counter (k, q, b*H+h,
-    offset) under key (seed low, seed high) is below floor(keep * 2^32)."""
+    is kept iff word k % 4 of Philox4x32-10 at counter (k // 4, q, b*H+h,
+    offset) under key (seed low, seed high) is below floor(keep * 2^32)
+    (one call draws four consecutive keys)."""
     device = seed_offset.device if device is None else device
     so = seed_offset.to(device=device, dtype=torch.int64)
     k0, k1 = so[0] & _MASK32, (so[0] >> 32) & _MASK32
-    c0 = torch.arange(Lk, device=device).view(1, 1, 1, Lk)
+    word = torch.arange(Lk, device=device).view(1, 1, 1, Lk) % 4
+    c0 = torch.arange(Lk, device=device).view(1, 1, 1, Lk) // 4
     c1 = torch.arange(Lq, device=device).view(1, 1, Lq, 1)
     c2 = torch.arange(B * H, device=device).view(B, H, 1, 1)
     c3 = so[1] & _MASK32
@@ -155,7 +161,9 @@ def dropout_keep_mask(seed_offset: torch.Tensor, B: int, H: int, Lq: int,
         hi1, lo1 = _mulhilo(c2, _M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     threshold, _ = _threshold(p_drop)
-    return c0.expand(B, H, Lq, Lk) < threshold
+    bits = torch.where(word < 2, torch.where(word == 0, c0, c1),
+                       torch.where(word == 2, c2, c3))
+    return bits.expand(B, H, Lq, Lk) < threshold
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +236,11 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 `x` rounded to `dtype` and back (unchanged for fp32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, scale: float,
@@ -236,8 +249,11 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias_grad: bool = False):
     """The plain PyTorch version of K-ATT-BWD, with the kernel's numerics:
     P rebuilt in fp32 from the logits and the forward's lse, every sum in
-    fp32. Returns (dq, dk, dv) in q's dtype and d(bias) as fp32
-    (B, Lq, Lk), the head sum of dS, or None."""
+    fp32. In bf16 the kernel's tensor cores take P o Z (through the
+    rounded P) and dS rounded to bf16 into the dV, dK and dQ products,
+    and so does this version; dP, D, dS itself and d(bias) stay fp32, and
+    fp32 inputs are not rounded. Returns (dq, dk, dv) in q's dtype and
+    d(bias) as fp32 (B, Lq, Lk), the head sum of dS, or None."""
     attention_bwd_plain_calls.add()
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
@@ -255,9 +271,10 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row_d = (dof * out.float()).sum(-1, keepdim=True)
     dpd = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dpd * z - row_d)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p * z, dof)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dsr = _round_to(ds, q.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", _round_to(p, q.dtype) * z, dof)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsr, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf) * scale
     dbias = ds.sum(1) if bias_grad else None
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias
 
@@ -287,6 +304,19 @@ def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{what}: {name} head dim not contiguous")
     if Lq < 1 or Lk < 1:
         raise ValueError(f"{what}: empty sequence")
+
+
+def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """The bf16 kernels copy and store rows of 16 bytes: every base must
+    be 16-byte aligned and every (b, h, l) stride of a dim longer than 1 a
+    multiple of 8 elements."""
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16 or any(
+                s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{what}: bf16 {name} (strides {t.stride()}) "
+                             "is not 16-byte aligned")
 
 
 def _bias_operand(what: str, bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -348,6 +378,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed_ptr, threshold, inv_keep = _dropout_operand(
         "attention_fwd", p_drop, seed_offset, q.device)
     out = _empty_out(q, out_layout)
+    _check_aligned("attention_fwd", q=q, k=k, v=v, out=out)
     lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     lib = cuda_build.load("attention")
@@ -413,6 +444,7 @@ def attention_cheap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     out = _empty_out(q, "head")
+    _check_aligned("attention_cheap", q=q, k=k, v=v, out=out)
     lib = cuda_build.load("attention")
     sq, sk, sv, so = q.stride(), k.stride(), v.stride(), out.stride()
     with torch.cuda.device(q.device):
@@ -442,10 +474,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     lib = cuda_build.load("attention_bwd")
-    if Lk > lib.etp_attention_bwd_max_lk():
-        raise ValueError(f"attention_bwd: Lk {Lk} > "
-                         f"{lib.etp_attention_bwd_max_lk()}, the most its "
-                         "shared memory holds")
+    max_lk = lib.etp_attention_bwd_max_lk(_DTYPES[q.dtype], Lq,
+                                          int(bias_grad))
+    if Lk > max_lk:
+        raise ValueError(f"attention_bwd: Lk {Lk} > {max_lk}, the most its "
+                         f"shared memory holds at Lq {Lq}")
     for name, t in (("out", out), ("dout", dout)):
         if (tuple(t.shape) != (B, H, Lq, hd) or t.dtype != q.dtype
                 or t.device != q.device or t.stride(3) != 1):
@@ -456,6 +489,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError("attention_bwd: lse must be contiguous fp32 "
                          "(B, H, Lq)")
+    _check_aligned("attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     bias_ptr, sb, _keep_alive = _bias_operand("attention_bwd", bias, q, Lk)
     seed_ptr, threshold, inv_keep = _dropout_operand(
         "attention_bwd", p_drop, seed_offset, q.device)
@@ -465,11 +499,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=q.device).transpose(1, 2)
 
     dq, dk, dv = natural(Lq), natural(Lk), natural(Lk)
-    dbias_heads = dbias = None
-    if bias_grad:
-        dbias_heads = torch.empty(B, H, Lq, Lk, dtype=torch.float32,
-                                  device=q.device)
-        dbias = torch.empty(B, Lq, Lk, dtype=torch.float32, device=q.device)
+    dbias = (torch.empty(B, Lq, Lk, dtype=torch.float32, device=q.device)
+             if bias_grad else None)
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv)
                for s in t.stride()[:3]] + list(sb)
     st = (ctypes.c_longlong * len(strides))(*strides)
@@ -479,7 +510,6 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            None if dbias_heads is None else dbias_heads.data_ptr(),
             None if dbias is None else dbias.data_ptr(),
             _DTYPES[q.dtype], B, H, Lq, Lk, hd, st, float(scale), seed_ptr,
             threshold, inv_keep, stream)

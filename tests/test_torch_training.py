@@ -7,8 +7,9 @@ weights carried over by `models/convert.py` and the same seeded inputs.
   d(bias) at 2e-5 absolute, with a full and a broadcast bias.
 - Attention dropout: the plain forward and backward against autograd
   through the same formula in float64 with the mask materialised (2e-5:
-  the plain versions compute in fp32); the Philox bits against a
-  pure-Python Philox4x32-10 and its published test vectors; the drop
+  the plain versions compute in fp32); the Philox bits (word k % 4 of the
+  call at counter k // 4) against a pure-Python Philox4x32-10 and its
+  published test vectors; the drop
   rate over 10^6 draws; the same bits in both layouts.
 - `compute_il_loss` and every planner gradient against
   `jax.value_and_grad(compute_il_loss)` with dropout off, on one recorded
@@ -160,8 +161,8 @@ def test_dropout_bits_are_philox():
         for h in range(H):
             for i in range(Lq):
                 for j in range(Lk):
-                    word = _philox_ref((j, i, b * H + h, offset & _MASK32),
-                                       key)[0]
+                    word = _philox_ref(
+                        (j // 4, i, b * H + h, offset & _MASK32), key)[j % 4]
                     assert keep[b, h, i, j] == (word < threshold)
 
 
