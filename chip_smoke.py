@@ -291,6 +291,42 @@ def check_attention(card: str) -> dict:
     return rows
 
 
+def check_misaligned_refused() -> None:
+    """A bf16 view whose rows are not 16-byte aligned (its base 2 bytes
+    past a row start) is refused by the entry points of K-ATT, K-ATT-CHEAP
+    and K-ATT-BWD, which launch nothing; the wrappers raise ValueError."""
+    from etpnav_tpu_torch.ops import fused_attention as fa
+    dev = torch.device("cuda")
+    B, H, L, hd = 2, 2, 5, 64
+    x = torch.randn(B, L, H * hd + 8, device=dev).to(torch.bfloat16)
+    ok = x[..., :H * hd].view(B, L, H, hd).transpose(1, 2)
+    bad = x[..., 1:H * hd + 1].view(B, L, H, hd).transpose(1, 2)
+    lse = torch.zeros(B, H, L, device=dev)
+    counters = (fa.attention_fwd_launches, fa.attention_cheap_launches,
+                fa.attention_bwd_launches)
+    before = [c.value for c in counters]
+    for name, fn in (
+            ("attention_fwd", lambda: fa.attention_fwd(bad, ok, ok, None,
+                                                       0.125)),
+            ("attention_cheap", lambda: fa.attention_cheap(ok, bad, ok,
+                                                           0.125)),
+            ("attention_bwd", lambda: fa.attention_bwd(
+                ok, ok, ok, None, ok, lse, bad, 0.125))):
+        try:
+            fn()
+        except ValueError as e:
+            if "16-byte" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: a misaligned bf16 view was "
+                                 "launched")
+    torch.cuda.synchronize()
+    if [c.value for c in counters] != before:
+        raise AssertionError("a refused attention call counted a launch")
+    log("K-ATT, K-ATT-CHEAP, K-ATT-BWD: misaligned bf16 views refused "
+        "with no launch")
+
+
 def learn_attention_cases(dev, G: int = 96, BT: int = 160, B: int = 8):
     """(name, q, k, v, bias) of the learn step's four attentions at
     r2r_config (B = 8 envs, T = 20 steps: B*T = 160 replay rows; 80 text
@@ -1579,12 +1615,8 @@ def check_head_out_and_cheap(card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
-# the bf16 attention kernels' design, and their times before it (ms per
-# wrapper call at the rows' shapes, PERF.md section 6: chip_smoke on an
-# NVIDIA H100 80GB HBM3 at 700 W, PR 1-4)
+# the design of the bf16 attention kernels
 TC_DESIGN = "tensor cores (mma.sync)"
-MS_PR4 = {"attention_fwd": 0.1269, "attention_bwd": 1.9447,
-          "attention_fwd_head_out": 0.5008, "attention_cheap": 0.4912}
 
 # launches per call of each served program: K-ATT 16 per perceive (11
 # CLIP blocks, the cls row, 2 waypoint, 2 pano), 8 per navigation scoring
@@ -1687,6 +1719,7 @@ def main() -> int:
     # phase 3
     cfg = r2r_config()
     att_rows = check_attention(card)
+    check_misaligned_refused()
     drop_rows = check_attention_dropout(card)
     # phase 3c
     bwd_rows = check_attention_bwd(card)
@@ -1793,8 +1826,7 @@ def main() -> int:
          "bound_by": a["bound_by"], "library_ms": a["library_ms"],
          "at": "clip_natural bf16 q/k/v (96,12,50,64)",
          "design": TC_DESIGN, "kernel_ms": a["kernel_ms"],
-         "library_kernel_ms": a["library_kernel_ms"],
-         "ms_pr4": MS_PR4["attention_fwd"]},
+         "library_kernel_ms": a["library_kernel_ms"]},
         {"name": "heatmap_nms_fused", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
@@ -1848,8 +1880,7 @@ def main() -> int:
          "library_kernel_ms": bw["library_kernel_ms"], "design": TC_DESIGN,
          "kernel_ms": bw["kernel_ms"],
          "library_bwd_ms": bw["library_bwd_ms"],
-         "library_bwd_kernel_ms": bw["library_bwd_kernel_ms"],
-         "ms_pr4": MS_PR4["attention_bwd"]},
+         "library_bwd_kernel_ms": bw["library_bwd_kernel_ms"]},
         {"name": "attention_block", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention_block.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:686 "
@@ -1876,8 +1907,7 @@ def main() -> int:
          "at": "q/k/v (384,50,12,64) natural, out (384,12,50,64) bf16; "
                "library_ms is SDPA on the same operands",
          "design": TC_DESIGN, "kernel_ms": t1["kernel_ms"],
-         "library_kernel_ms": t1["library_kernel_ms"],
-         "ms_pr4": MS_PR4["attention_fwd_head_out"]},
+         "library_kernel_ms": t1["library_kernel_ms"]},
         {"name": "attention_cheap", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "tools/exp_attn_pack.py:86 cheap_attention",
@@ -1890,8 +1920,7 @@ def main() -> int:
          "at": "q/k/v (384,12,50,64) head-leading bf16; library_ms is SDPA "
                "on the same operands (softmax(x - 10) = softmax(x))",
          "design": TC_DESIGN, "kernel_ms": t2["kernel_ms"],
-         "library_kernel_ms": t2["library_kernel_ms"],
-         "ms_pr4": MS_PR4["attention_cheap"]},
+         "library_kernel_ms": t2["library_kernel_ms"]},
     ]
     log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
         f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")

@@ -32,8 +32,8 @@
 // A operand of P.V with no shared-memory round trip. Keys are walked 64
 // at a time with an online softmax. The output is staged in shared memory
 // and written with 16-byte stores, so q, k, v and the output need a
-// 16-byte-aligned base and row, head and batch strides (the wrapper
-// checks). A block reads K and V from L2 once per 128 query rows.
+// 16-byte-aligned base and row, head and batch strides (the entry points
+// check). A block reads K and V from L2 once per 128 query rows.
 //
 // fp32: CUDA cores with fp32 FMAs (a TF32 tensor core would break the
 // fp32 tolerances), 16 query rows per block of 4 warps, keys in tiles of
@@ -500,6 +500,9 @@ int launch_tc(const void* q, const void* k, const void* v, const float* bias,
               long long sbq, long long sbk, float scale,
               const long long* seed_offset, uint32_t threshold,
               float inv_keep, float* lse, cudaStream_t stream) {
+  if (!etp::rows16(q, sq, B, H, Lq) || !etp::rows16(k, sk, B, H, Lk) ||
+      !etp::rows16(v, sv, B, H, Lk) || !etp::rows16(out, so, B, H, Lq))
+    return etp::kErrMisaligned;
   const int chunk = std::min(kTcMaxChunk, (Lk + 15) / 16 * 16);
   const int warps = std::min(kTcWarps, (Lq + 15) / 16);
   const int bytes = tc_smem_bytes(warps, chunk);
@@ -526,10 +529,10 @@ extern "C" {
 // seed_offset: null (no dropout) or device int64[2] {seed, offset}; a
 // probability is kept iff its Philox word is below `threshold`, and then
 // scaled by inv_keep. lse: null, or a contiguous fp32 (B, H, Lq) output.
-// bf16 operands need a 16-byte-aligned base and strides that are
-// multiples of 8 elements. Returns cudaGetLastError() after the launch,
-// or -1 for a head dim or dtype the kernel does not take (hd = 64, the
-// width of every configuration's heads, is the one built).
+// Returns cudaGetLastError() after the launch, -1 for a head dim or
+// dtype the kernel does not take (hd = 64, the width of every
+// configuration's heads, is the one built), or etp::kErrMisaligned for a
+// bf16 q, k, v or out without 16-byte rows (etp::rows16).
 int etp_attention_fwd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int dtype, int B, int H,
                       int Lq, int Lk, int hd, long long sqb, long long sqh,
@@ -573,7 +576,8 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
 
 // K-ATT-CHEAP: bfloat16 q, k, v and out with the same element strides
 // and alignment as etp_attention_fwd, no bias. Returns cudaGetLastError()
-// after the launch, or -1 for a head dim other than 64.
+// after the launch, -1 for a head dim other than 64, or
+// etp::kErrMisaligned as etp_attention_fwd does.
 int etp_attention_cheap(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int Lq, int Lk, int hd,
                         long long sqb, long long sqh, long long sql,

@@ -37,7 +37,7 @@
 // shared-memory read-modify-write and no atomics: every sum has one
 // owner, so the result does not depend on scheduling. D is computed from
 // 16-byte loads of dO and O, so q, k, v, O and dO need a 16-byte-aligned
-// base and strides (the wrapper checks).
+// base and strides (the entry point checks).
 //
 // fp32: CUDA cores with fp32 FMAs (TF32 tensor cores would break the
 // fp32 tolerances): per query tile of 16 rows, keys in tiles of 32 (lane
@@ -615,10 +615,13 @@ attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <typename... KArgs, typename... Args>
 int launch(void (*kernel)(KArgs...), int B, int H, bool dbias, int threads,
            long long bytes, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int blocks = dbias ? dbias_cluster(H) : H;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * blocks);
@@ -665,9 +668,9 @@ int etp_attention_bwd_max_lk(int dtype, int lq, int bias_grad) {
 // (B, Lq, Lk)) is null unless d(bias) is asked. seed_offset: null (no
 // dropout) or the forward's device int64[2] {seed, offset}, with its
 // threshold and inv_keep. lse: the forward's contiguous fp32 (B, H, Lq).
-// bf16 q, k, v, o and dout need a 16-byte-aligned base and strides that
-// are multiples of 8 elements. Returns the CUDA error of the launch, or -1
-// for a head dim, dtype or Lk the kernel does not take.
+// Returns the CUDA error of the launch, -1 for a head dim, dtype or Lk
+// the kernel does not take, or etp::kErrMisaligned for a bf16 q, k, v, o
+// or dout without 16-byte rows (etp::rows16).
 int etp_attention_bwd(const void* q, const void* k, const void* v,
                       const void* bias, const void* o, const void* dout,
                       const void* lse, void* dq, void* dk, void* dv,
@@ -710,6 +713,10 @@ int etp_attention_bwd(const void* q, const void* k, const void* v,
                   sk, sv, so, sdo, st[24], st[25], st[26], scale, sp,
                   threshold, inv_keep);
   }
+  if (!etp::rows16(q, sq, B, H, Lq) || !etp::rows16(k, sk, B, H, Lk) ||
+      !etp::rows16(v, sv, B, H, Lk) || !etp::rows16(o, so, B, H, Lq) ||
+      !etp::rows16(dout, sdo, B, H, Lq))
+    return etp::kErrMisaligned;
   const TcShape sh = tc_shape(Lq, Lk, db);
   auto kernel = sp ? (sh.kt == 1 ? attention_bwd_tc_kernel<true, 1>
                                  : attention_bwd_tc_kernel<true, 2>)

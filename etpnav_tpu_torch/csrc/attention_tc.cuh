@@ -28,6 +28,20 @@ namespace etp {
 constexpr int kTcHd = 64;                // the head dim of every tile
 constexpr int kTcPitch = kTcHd + 8;      // bf16 elements per tile row
 
+// What a bf16 entry point returns, without launching, for an operand
+// whose rows cannot be copied as 16-byte chunks.
+constexpr int kErrMisaligned = -2;
+
+// True when a bf16 (n0, n1, n2, hd) operand with element strides `s`
+// (fields b, h, l) has 16-byte rows: a 16-byte-aligned base, and the
+// stride of every dim longer than 1 a multiple of 8 elements.
+template <typename S>
+inline bool rows16(const void* p, const S& s, int n0, int n1, int n2) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (n0 == 1 || s.b % 8 == 0) && (n1 == 1 || s.h % 8 == 0) &&
+         (n2 == 1 || s.l % 8 == 0);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),

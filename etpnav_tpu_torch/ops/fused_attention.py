@@ -24,7 +24,7 @@ strides whose last one is 1 — the natural projection output
 read in place. On a CUDA device, bf16 q, k, v (and the backward's out
 and dout) need a 16-byte-aligned base and strides that are multiples of
 8 elements, which every projection output and its views have; the
-wrappers raise otherwise. The output is (B, H, Lq, hd) laid out in memory as
+kernels' entry points refuse any other, and the wrappers raise. The output is (B, H, Lq, hd) laid out in memory as
 (B, Lq, H, hd), so `out.transpose(1, 2).reshape(B, Lq, H * hd)` feeds the
 output projection with no copy; the gradients dq, dk, dv take the same
 natural layout. `attention_fwd(..., out_layout="head")` writes a
@@ -306,17 +306,20 @@ def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{what}: empty sequence")
 
 
-def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
-    """The bf16 kernels copy and store rows of 16 bytes: every base must
-    be 16-byte aligned and every (b, h, l) stride of a dim longer than 1 a
-    multiple of 8 elements."""
-    for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            continue
-        if t.data_ptr() % 16 or any(
-                s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-            raise ValueError(f"{what}: bf16 {name} (strides {t.stride()}) "
-                             "is not 16-byte aligned")
+# what the bf16 entry points return, without launching, for an operand
+# whose rows are not 16-byte aligned (etp::kErrMisaligned, attention_tc.cuh)
+_MISALIGNED = -2
+
+
+def _check_status(err: int, what: str) -> None:
+    """Raises for an entry point's nonzero status: ValueError for a bf16
+    operand the kernel refused as not 16-byte aligned, RuntimeError for a
+    failed launch."""
+    if err == _MISALIGNED:
+        raise ValueError(f"{what}: a bf16 operand is not 16-byte aligned "
+                         "(its base, or a batch, head or row stride that is "
+                         "not a multiple of 8 elements)")
+    cuda_build.check(err, what)
 
 
 def _bias_operand(what: str, bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -378,8 +381,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed_ptr, threshold, inv_keep = _dropout_operand(
         "attention_fwd", p_drop, seed_offset, q.device)
     out = _empty_out(q, out_layout)
-    _check_aligned("attention_fwd", q=q, k=k, v=v, out=out)
-    lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+    lse =(torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     lib = cuda_build.load("attention")
     sq, sk, sv, so = q.stride(), k.stride(), v.stride(), out.stride()
@@ -392,7 +394,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             so[0], so[1], so[2], sb[0], sb[1], sb[2], float(scale),
             seed_ptr, threshold, inv_keep,
             None if lse is None else lse.data_ptr(), stream)
-    cuda_build.check(err, "attention_fwd")
+    _check_status(err, "attention_fwd")
     if out_layout == "head":
         attention_fwd_head_out_launches.add()
     else:
@@ -444,7 +446,6 @@ def attention_cheap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     out = _empty_out(q, "head")
-    _check_aligned("attention_cheap", q=q, k=k, v=v, out=out)
     lib = cuda_build.load("attention")
     sq, sk, sv, so = q.stride(), k.stride(), v.stride(), out.stride()
     with torch.cuda.device(q.device):
@@ -453,7 +454,7 @@ def attention_cheap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             Lq, Lk, hd, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0],
             sv[1], sv[2], so[0], so[1], so[2], float(scale), stream)
-    cuda_build.check(err, "attention_cheap")
+    _check_status(err, "attention_cheap")
     attention_cheap_launches.add()
     return out
 
@@ -489,7 +490,6 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError("attention_bwd: lse must be contiguous fp32 "
                          "(B, H, Lq)")
-    _check_aligned("attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     bias_ptr, sb, _keep_alive = _bias_operand("attention_bwd", bias, q, Lk)
     seed_ptr, threshold, inv_keep = _dropout_operand(
         "attention_bwd", p_drop, seed_offset, q.device)
@@ -513,7 +513,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if dbias is None else dbias.data_ptr(),
             _DTYPES[q.dtype], B, H, Lq, Lk, hd, st, float(scale), seed_ptr,
             threshold, inv_keep, stream)
-    cuda_build.check(err, "attention_bwd")
+    _check_status(err, "attention_bwd")
     attention_bwd_launches.add()
     return dq, dk, dv, dbias
 

@@ -190,16 +190,28 @@ def test_bf16_attention_kernels_issue_mma_and_no_library(source):
 
 
 def test_bf16_wrappers_check_16_byte_rows():
-    """The bf16 kernels copy and store 16-byte rows: a bf16 view whose
-    base or strides break that alignment is refused, fp32 is not checked,
-    and the projection outputs' natural views pass."""
-    x = torch.zeros(2, 5, 2 * 64 + 8, dtype=torch.bfloat16)
-    natural = x[..., :128].view(2, 5, 2, 64).transpose(1, 2)
-    tfa._check_aligned("t", q=natural)
-    shifted = x[..., 1:129].view(2, 5, 2, 64).transpose(1, 2)
+    """The bf16 kernels copy and store 16-byte rows. Their entry points
+    test every bf16 operand's base and strides (etp::rows16) before the
+    launch and return kErrMisaligned, which the wrappers raise as
+    ValueError; any other nonzero status is a failed launch. chip_smoke.py
+    checks the refusal on the card."""
+    tc = _code("attention_tc.cuh")
+    assert f"kErrMisaligned = {tfa._MISALIGNED};" in tc
+    assert "% 16 == 0" in tc and "s.l % 8 == 0" in tc
+    fwd = _code("attention.cu")
+    launch = fwd[fwd.index("int launch_tc("):]
+    bwd = _code("attention_bwd.cu")
+    entry = bwd[bwd.index("int etp_attention_bwd("):]
+    for body, ops, launched in (
+            (launch, ("q, sq", "k, sk", "v, sv", "out, so"), "<<<"),
+            (entry, ("q, sq", "k, sk", "v, sv", "o, so", "dout, sdo"),
+             "attention_bwd_tc_kernel")):
+        for op in ops:
+            assert f"etp::rows16({op}," in body, op
+        assert (body.index("return etp::kErrMisaligned")
+                < body.index(launched))
     with pytest.raises(ValueError, match="16-byte"):
-        tfa._check_aligned("t", q=shifted)
-    odd = torch.zeros(2, 5, 2 * 64 + 4, dtype=torch.bfloat16)[..., :128]
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa._check_aligned("t", k=odd.view(2, 5, 2, 64).transpose(1, 2))
-    tfa._check_aligned("t", q=shifted.float())
+        tfa._check_status(tfa._MISALIGNED, "t")
+    with pytest.raises(RuntimeError, match="error 700"):
+        tfa._check_status(700, "t")
+    tfa._check_status(0, "t")
