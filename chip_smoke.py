@@ -14,12 +14,15 @@ Phases, each reported on its own lines:
   3. every kernel against its plain PyTorch version on the card, at the
      serving path's shapes, in fp32 and bf16, with its time, the plain
      version's, the PyTorch library call's where there is one, and the
-     card's bound for the same work (the attention kernels and SDPA also
-     with their device time alone, `kernel_ms`, from torch.profiler): K-ATT
-     (bf16 on tensor cores, fp32 on CUDA cores) and K-NMS; K-GN at every
-     GroupNorm shape of the fused depth trunk at B = 96 (recorded from one
-     fused trunk pass on the card); K-PRENORM at the CLIP shape
-     (96, 50, 768) beside the port's unfused CLIP attention half-block;
+     card's bound for the same work, and the kernels' device time alone,
+     `kernel_ms`, from torch.profiler: K-ATT (bf16 on tensor cores, fp32
+     on CUDA cores) beside SDPA, and K-NMS; K-GN at every GroupNorm shape
+     of the fused depth trunk at B = 96 (recorded from one fused trunk
+     pass on the card; two launches bit-equal; the device time summed
+     over one perceive's 54 launches); the bf16 weight rounding of
+     K-PRENORM and K-BLOCK bit for bit against `.to(torch.bfloat16)`;
+     K-PRENORM at the CLIP shape (96, 50, 768) beside the port's unfused
+     CLIP attention half-block;
      K-ATT with attention dropout 0.1 at the learn step's shapes, and its
      p_drop = 0 launch with the row log-sum-exp bit for bit against the
      serving launch;
@@ -161,6 +164,24 @@ def kernel_ms(fn, iters: int = 20, tries: int = 3) -> float:
             return total / 1e3 / iters
     raise AssertionError(f"kernel_ms: the profiler saw no device time in "
                          f"{tries} windows")
+
+
+def kernel_split(fn, iters: int = 20) -> list:
+    """(kernel name, device ms per call, launches per call) of each kernel
+    fn() launches, from torch.profiler, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    return sorted(((e.key, e.self_device_time_total / 1e3 / iters,
+                    e.count / iters) for e in ev), key=lambda r: -r[1])
 
 
 def bound_ms(nbytes: int, flops: float, dtype) -> tuple:
@@ -601,18 +622,19 @@ def check_nms(card: str) -> dict:
         if err > NMS_VALUE_TOL:
             raise AssertionError(f"K-NMS B={B}: max abs err {err}")
         ms = cuda_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0)))
+        k_ms = kernel_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0)))
         plain_ms = cuda_ms(lambda: heatmap_nms_plain(logits, 5, (7.0, 5.0)))
         N0, N = 120 * 12, 122 * 12
         nbytes = 4 * B * (N0 + N)
         # softmax (max, exp, sum, divide) + 5 rounds of compare + mask
         flops = B * (4 * N0 + 5 * 6 * N)
         b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-        rows[f"B{B}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": None, "bound_ms": b_ms,
-                         "bound_by": b_by}
+        rows[f"B{B}"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
+                         "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by}
         log(f"K-NMS B={B} (B,120,12) fp32 err={err:.3g} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
-            f"[{card}]")
+            f"kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) [{card}]")
     return rows
 
 
@@ -694,8 +716,13 @@ def check_group_norm(card: str, calls: collections.Counter) -> dict:
             if err > tol:
                 raise AssertionError(f"K-GN {name}: max abs err {err} > "
                                      f"{tol}")
+            again = group_norm_fused(p, x, G, relu=relu, residual=res)
+            if not torch.equal(again, got):
+                raise AssertionError(f"K-GN {name}: two launches differ")
             ms = cuda_ms(lambda: group_norm_fused(p, x, G, relu=relu,
                                                   residual=res))
+            k_ms = kernel_ms(lambda: group_norm_fused(p, x, G, relu=relu,
+                                                      residual=res))
             plain_ms = cuda_ms(lambda: group_norm_plain(p, x, G, relu=relu,
                                                         residual=res))
             w, b = p.weight.to(dtype), p.bias.to(dtype)
@@ -706,13 +733,38 @@ def check_group_norm(card: str, calls: collections.Counter) -> dict:
             b_ms, b_by = bound_ms(nbytes, 8.0 * x.numel(), torch.float32)
             rows[name] = {"shape": list(shape), "per_perceive": count,
                           "max_abs_err": err, "tol": tol, "ms": ms,
-                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "bound_ms": b_ms, "bound_by": b_by}
+                          "kernel_ms": k_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
             log(f"K-GN {name:32s} x{count:<2d} err={err:.3g} (tol {tol:.3g})"
-                f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f" ms={ms:.4f} kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
                 f"group_norm_ms={lib_ms:.4f} (GN only, no ReLU/residual) "
                 f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    for dtype in ("float32", "bfloat16"):
+        sel = [r for k, r in rows.items() if k.endswith(dtype)]
+        log(f"K-GN {dtype}: {sum(r['per_perceive'] for r in sel)} launches "
+            f"per fused perceive (B=96), weighted sums: kernel_ms "
+            f"{sum(r['kernel_ms'] * r['per_perceive'] for r in sel):.4f} "
+            f"ms={sum(r['ms'] * r['per_perceive'] for r in sel):.4f} "
+            f"bound_ms={sum(r['bound_ms'] * r['per_perceive'] for r in sel):.4f}"
+            f" [{card}]")
     return rows
+
+
+def check_round_bf16(card: str) -> None:
+    """The bf16 chains' weight rounding (`round_bf16_kernel`) against
+    `.to(torch.bfloat16)`, bit for bit, on CLIP-width weights with exact
+    rounding ties."""
+    from etpnav_tpu_torch.ops.fused_prenorm import round_bf16
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(4 * 768, 768, generator=g, device="cuda")
+    u = w.view(torch.int32)
+    u[:768] = (u[:768] & -65536) | 0x8000
+    got, want = round_bf16(w), w.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("round_bf16: differs from .to(torch.bfloat16)")
+    log(f"round_bf16 (3072,768): bit-equal to .to(torch.bfloat16) [{card}]")
 
 
 def check_prenorm(card: str, cfg) -> dict:
@@ -758,22 +810,39 @@ def check_prenorm(card: str, cfg) -> dict:
 
             ms = cuda_ms(lambda: prenorm_attention(x, ln, attn, H, eps),
                          iters=20)
+            k_ms = kernel_ms(lambda: prenorm_attention(x, ln, attn, H, eps))
             plain_ms = cuda_ms(lambda: prenorm_attention_plain(
                 x, ln, attn, H, eps), iters=20)
             unfused_ms = cuda_ms(unfused, iters=20)
+            unfused_k_ms = kernel_ms(unfused)
+            split = kernel_split(
+                lambda: prenorm_attention(x, ln, attn, H, eps))
+            # yardstick for the chain's q/k/v GEMM: one cuBLAS product of
+            # the same shape in x's dtype
+            a2 = x.reshape(-1, D)
+            w3 = torch.cat([attn.q.weight, attn.k.weight,
+                            attn.v.weight]).to(dtype)
+            qkv_lib_k_ms = kernel_ms(lambda: torch.mm(a2, w3.t()))
         M, hd = B * L, D // H
         nbytes = 2 * x.numel() * x.element_size() + 4 * D * D * 4
         flops = 2.0 * M * D * 4 * D + 4.0 * B * H * L * L * hd
         b_ms, b_by = bound_ms(nbytes, flops, dtype)
         key = str(dtype).split(".")[-1]
         rows[key] = {"shape": [B, L, D], "max_abs_err": err, "tol": tol,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "unfused_half_block_ms": unfused_ms, "library_ms": None,
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
+                     "unfused_half_block_ms": unfused_ms,
+                     "unfused_half_block_kernel_ms": unfused_k_ms,
+                     "library_qkv_gemm_kernel_ms": qkv_lib_k_ms,
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         log(f"K-PRENORM ({B},{L},{D}) {key} err={err:.3g} (tol {tol:.3g}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"unfused_half_block_ms={unfused_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}) [{card}]")
+            f"ms={ms:.4f} kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"unfused_half_block_ms={unfused_ms:.4f} (kernel_ms "
+            f"{unfused_k_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+        for name, k, n in split:
+            log(f"  K-PRENORM {key} {k:.4f} ms x{n:g} {name[:100]}")
+        log(f"  cuBLAS torch.mm ({B * L},{D})x({D},{3 * D}) {key} kernel_ms "
+            f"{qkv_lib_k_ms:.4f} (the q/k/v GEMM's yardstick)")
+        rows[key]["kernel_split"] = [[name[:60], k] for name, k, _ in split]
     return rows
 
 
@@ -1475,19 +1544,30 @@ def check_block(card: str, cfg, planner_p, counters) -> tuple:
                                 iters=20)
             row["plain_ms"] = cuda_ms(lambda: attention_block_plain(
                 x, p, bias, H, eps), iters=5, warmup=1)
+            row["kernel_ms"] = kernel_ms(
+                lambda: attention_block(x, p, bias, H, eps))
             row["unfused_block_ms"] = cuda_ms(
                 lambda: self_attention_block(p, x, H, bias, eps), iters=20)
+            row["unfused_block_kernel_ms"] = kernel_ms(
+                lambda: self_attention_block(p, x, H, bias, eps))
+            if dtype == torch.bfloat16:
+                row["kernel_split"] = [[n[:60], k] for n, k, _ in kernel_split(
+                    lambda: attention_block(x, p, bias, H, eps))]
             row["library_ms"] = None
             row["bound_ms"], row["bound_by"] = bound_ms(
                 *block_work(x, bias), dtype)
         rows[key] = row
         times = ("" if "ms" not in row else
-                 f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                 f"unfused_block_ms={row['unfused_block_ms']:.4f} "
+                 f" ms={row['ms']:.4f} kernel_ms={row['kernel_ms']:.4f} "
+                 f"plain_ms={row['plain_ms']:.4f} "
+                 f"unfused_block_ms={row['unfused_block_ms']:.4f} (kernel_ms "
+                 f"{row['unfused_block_kernel_ms']:.4f}) "
                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
         log(f"K-BLOCK {key:22s} x{tuple(x.shape)} err={err:.3g} (tol "
             f"{tol:.3g}) vs unfused {err_u:.3g} (tol {tol_u:.3g}){times} "
             f"[{card}]")
+        for name, k in row.get("kernel_split", []):
+            log(f"  K-BLOCK {key} {k:.4f} ms {name}")
     log(f"K-BLOCK: {counts['attention_block']} launches, exact; no plain "
         f"call [{card}]")
     return rows, counts
@@ -1733,6 +1813,7 @@ def main() -> int:
         raise AssertionError(f"K-GN: {sum(gn_calls.values())} calls per "
                              "trunk pass")
     gn_rows = check_group_norm(card, gn_calls)
+    check_round_bf16(card)
     pre_rows = check_prenorm(card, cfg)
 
     counters = {"attention_fwd": fused_attention.attention_fwd_launches,
@@ -1834,7 +1915,7 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in nms_rows.values()),
          "ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
          "bound_by": n["bound_by"], "library_ms": None,
-         "at": "logits (8,120,12) fp32"},
+         "at": "logits (8,120,12) fp32", "kernel_ms": n["kernel_ms"]},
         {"name": "group_norm_fused", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/groupnorm.cu",
          "replaces": "etpnav_tpu/ops/pallas_groupnorm.py:57 "
@@ -1846,6 +1927,11 @@ def main() -> int:
          "library_ms": g["library_ms"],
          "at": f"{gn_key} at B=96 (the trunk's largest bound); library_ms "
                "is F.group_norm (GN only, no ReLU/residual)",
+         "kernel_ms": g["kernel_ms"],
+         "kernel_ms_per_perceive": sum(r["kernel_ms"] * r["per_perceive"]
+                                       for r in gn_bf16.values()),
+         "bound_ms_per_perceive": sum(r["bound_ms"] * r["per_perceive"]
+                                      for r in gn_bf16.values()),
          "ms_per_perceive": sum(r["ms"] * r["per_perceive"]
                                 for r in gn_bf16.values()),
          "plain_ms_per_perceive": sum(r["plain_ms"] * r["per_perceive"]
@@ -1860,7 +1946,9 @@ def main() -> int:
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": None,
          "at": "x (96,50,768) bf16",
-         "unfused_half_block_ms": p["unfused_half_block_ms"]},
+         "unfused_half_block_ms": p["unfused_half_block_ms"],
+         "kernel_ms": p["kernel_ms"],
+         "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"]},
         {"name": "attention_bwd", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
@@ -1893,7 +1981,14 @@ def main() -> int:
          "at": "text-encoder layer x (8,80,768) bf16 + key-mask bias; "
                "launches: phase 8's 9 text + 4 graph blocks in two dtypes "
                "and (160,64), (64,200) in two",
-         "unfused_block_ms": kb["unfused_block_ms"]},
+         "unfused_block_ms": kb["unfused_block_ms"],
+         "kernel_ms": kb["kernel_ms"],
+         "unfused_block_kernel_ms": kb["unfused_block_kernel_ms"],
+         "kernel_ms_by_shape": {
+             k.split("/")[0]: [block_rows[k]["kernel_ms"],
+                               block_rows[k]["unfused_block_kernel_ms"]]
+             for k in ("text0/bfloat16", "alone_160x64/bfloat16",
+                       "alone_64x200/bfloat16")}},
         {"name": "attention_fwd_head_out", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "tools/exp_attn_layout.py:61 bdims_attention",

@@ -19,7 +19,12 @@ import torch.nn as nn
 
 from etpnav_tpu_torch.config import ClipConfig
 from etpnav_tpu_torch.ops.attention import MHA, mha
-from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, quick_gelu
+from etpnav_tpu_torch.ops.basic import (
+    LayerNorm,
+    Linear,
+    matmul_f32,
+    quick_gelu,
+)
 from etpnav_tpu_torch.ops.fused_prenorm import prenorm_attention
 
 # CLIP preprocessing constants (resnet_encoders.py:264-267)
@@ -94,7 +99,7 @@ def _trunk(params: ClipParams, cfg: ClipConfig, x: torch.Tensor,
     a = last.ln_1(x, eps)
     h = _mlp(last, x[:, :1] + mha(last.attn, a[:, :1], a, cfg.heads), eps)
     cls_out = params.ln_post(h[:, 0], eps)
-    return torch.matmul(cls_out, params.proj.to(dtype)).float()
+    return matmul_f32(cls_out, params.proj.to(dtype))
 
 
 def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
@@ -102,7 +107,8 @@ def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(B, H, W, 3) raw uint8 -> (B, output_dim) fp32, with the CLIP
     normalisation folded into the patch matmul: n @ W = p @ (s*W) + t @ W.
-    The fold happens in fp32 and then casts to `dtype`."""
+    The fold happens in fp32 and then casts to `dtype`; the patch product
+    is taken in fp32, the fp32 fold bias added, and rounded once."""
     ps = cfg.patch_size
     dev = rgb_uint8.device
     s = torch.from_numpy(np.tile(1.0 / (255.0 * CLIP_STD),
@@ -112,5 +118,5 @@ def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
     w_folded = (s[:, None] * w).to(dtype)
     b_folded = torch.matmul(t, w)
     x = _patchify(rgb_uint8, ps).to(dtype)
-    x = (torch.matmul(x, w_folded).float() + b_folded).to(dtype)
+    x = matmul_f32(x, w_folded, b_folded).to(dtype)
     return _trunk(params, cfg, x, dtype)

@@ -8,6 +8,7 @@ dtype; additive masks use -10000, not -inf.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -18,14 +19,24 @@ import torch.nn as nn
 NEG_INF = -10000.0
 
 
+@functools.lru_cache(maxsize=None)
+def _const(c: float, dtype: torch.dtype) -> float:
+    """The Python constant `c` as JAX uses it against an array of
+    `dtype`: a weakly typed scalar takes the array's dtype, so in bf16 it
+    is rounded to bf16 before the op (1.702 -> 1.703125), where PyTorch
+    would apply it in fp32."""
+    return c if dtype == torch.float32 else float(
+        torch.tensor(c, dtype=dtype))
+
+
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU (the reference BERT gelu), not the tanh form."""
-    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    return x * 0.5 * (1.0 + torch.erf(x / _const(math.sqrt(2.0), x.dtype)))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
-    return x * torch.sigmoid(1.702 * x)
+    return x * torch.sigmoid(_const(1.702, x.dtype) * x)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -39,12 +50,76 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a (..., K) @ b (K, N) (+ bias (N,) fp32) in fp32, for operands of
+    one dtype: the JAX package's `jnp.dot(a, b,
+    preferred_element_type=float32)` (+ bias). Every product of two bf16
+    values is exact in fp32, so only the order of the fp32 sums differs
+    between devices. On the card this is one cuBLAS call with fp32
+    output and the bias in its epilogue (`torch.addmm(...,
+    out_dtype=torch.float32)`, bf16 operands at the tensor cores' bf16
+    rate). This CPU build of PyTorch has no bf16 x bf16 -> fp32 product,
+    so on the CPU the operands are widened to fp32 first, which holds
+    the same values. No autograd on the card: `linear` carries its own
+    backward."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.dtype == torch.float32 or a.device.type != "cuda":
+        y = torch.mm(a2.float(), b.float())
+        if bias is not None:
+            y = y + bias
+    elif bias is None:
+        y = torch.mm(a2, b, out_dtype=torch.float32)
+    else:
+        y = torch.addmm(bias, a2, b, out_dtype=torch.float32)
+    return y.view(*a.shape[:-1], b.shape[-1])
+
+
+class _LinearRoundOnce(torch.autograd.Function):
+    """y = round(x . w^T + bias) for bf16 x and w and an fp32 bias: the
+    product in fp32, the bias added in fp32, one rounding to x's dtype,
+    as the JAX package's `linear`. The backward follows JAX's transpose
+    of that program: dx and dw are fp32 sums rounded once to bf16, and
+    d(bias) the fp32 sum of the output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        return matmul_f32(x, w.t(), bias).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul_f32(g, w).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = matmul_f32(g2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g2.float().sum(0)
+        return dx, dw, db
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor) -> torch.Tensor:
-    """Dense layer, weight (out, in). The product accumulates in fp32
-    (cuBLAS does for bf16 operands) and the result has the input dtype."""
-    return torch.nn.functional.linear(x, weight.to(x.dtype),
-                                      bias.to(x.dtype))
+    """Dense layer, weight (out, in), fp32 bias. fp32 x: one
+    `F.linear`. bf16 x: the weight rounded to bf16, the product
+    accumulated AND returned in fp32 (`matmul_f32`), the fp32 bias added,
+    and one rounding to bf16, where JAX rounds. (A bf16 `F.linear` would
+    round the bias to bf16 and the product before the bias is added.)
+    On the CPU the bf16 product runs on fp32 operands that hold the
+    bf16-rounded values: twice the bytes of a bf16 product, but this
+    PyTorch has no bf16 x bf16 -> fp32 product there."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.linear(x, weight, bias)
+    w = weight.to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or bias.requires_grad):
+        return _LinearRoundOnce.apply(x, w, bias)
+    # no graph to record (serving): the same forward without the
+    # autograd.Function's host cost (~10-15 us a call on the H100 host)
+    return matmul_f32(x, w.t(), bias).to(x.dtype)
 
 
 def mask_to_bias(mask: torch.Tensor,

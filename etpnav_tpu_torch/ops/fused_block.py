@@ -18,8 +18,9 @@ none through this one: `self_attention_block` stays the BERT stacks' path.
 
 Layout contract: x (B, L, D) contiguous, D = heads * 64, 1 <= L <= 224 on
 the card; `params` an `AttentionBlock` ({attn: {q, k, v}, out: {dense,
-ln}}) whose fp32 parameters lie on x's device (in bf16 the kernel rounds
-the fp32 weights as it loads them); `bias` fp32 broadcastable to
+ln}}) whose fp32 parameters lie on x's device (in bf16 the chain rounds
+the fp32 weights to bf16 once per call, into a scratch the wrapper
+allocates); `bias` fp32 broadcastable to
 (B, L, L), shared by the heads (a 4-D bias has a head dim of 1), its
 broadcast dims read with stride 0.
 """
@@ -48,7 +49,7 @@ attention_block_plain_calls = cuda_build.LaunchCounter()
 def _bind(lib: ctypes.CDLL) -> None:
     i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     lib.etp_attention_block.argtypes = (
-        [vp] * 12 + [i64] * 3 + [vp] * 4 + [i32] * 5 + [ctypes.c_float] * 2
+        [vp] * 12 + [i64] * 3 + [vp] * 5 + [i32] * 5 + [ctypes.c_float] * 2
         + [vp])
     lib.etp_attention_block.restype = ctypes.c_int
 
@@ -133,6 +134,8 @@ def attention_block(x: torch.Tensor, params: AttentionBlock,
     qkv = torch.empty(3, M, D, dtype=x.dtype, device=x.device)
     ctx = torch.empty(M, D, dtype=x.dtype, device=x.device)
     h32 = torch.empty(M, D, dtype=torch.float32, device=x.device)
+    w_bf16 = (torch.empty(4, D, D, dtype=torch.bfloat16, device=x.device)
+              if x.dtype == torch.bfloat16 else None)
     out = torch.empty_like(x)
     lib = cuda_build.load("attention_block")
     with torch.cuda.device(x.device):
@@ -142,7 +145,8 @@ def attention_block(x: torch.Tensor, params: AttentionBlock,
                             for t in (lin.weight, lin.bias)),
             params.out.ln.weight.data_ptr(), params.out.ln.bias.data_ptr(),
             b3.data_ptr(), sb[0], sb[1], sb[2],
-            qkv.data_ptr(), ctx.data_ptr(), h32.data_ptr(), out.data_ptr(),
+            None if w_bf16 is None else w_bf16.data_ptr(), qkv.data_ptr(),
+            ctx.data_ptr(), h32.data_ptr(), out.data_ptr(),
             _DTYPES[x.dtype], B, L, D, num_heads, float(eps),
             1.0 / math.sqrt(_HEAD_DIM), stream)
     cuda_build.check(err, "attention_block")

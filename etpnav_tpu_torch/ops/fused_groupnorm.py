@@ -69,23 +69,27 @@ def group_norm_plain(params: nn.Module, x: torch.Tensor, groups: int,
     return y.to(x.dtype)
 
 
-def group_norm_fused(params: nn.Module, x: torch.Tensor, groups: int,
-                     eps: float = 1e-5, relu: bool = False,
-                     residual: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
-    """GroupNorm(x) (+ residual) (ReLU) in x's dtype and strides. CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
-    if x.device.type == "cpu":
-        return group_norm_plain(params, x, groups, eps, relu, residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_fused: unsupported device {x.device}")
+def check_card_args(params: nn.Module, x: torch.Tensor, groups: int,
+                    residual: Optional[torch.Tensor]) -> None:
+    """Raise ValueError unless the kernel takes these operands: x a
+    channels_last (B, C, H, W) float32 or bfloat16 tensor, C a multiple
+    of `groups` and of 8 that divides 2048 (each thread of the kernel
+    reads 8 channels, and 256 threads one pixel-aligned span), x and the
+    residual 16-byte aligned, the residual of x's shape, dtype, device
+    and strides, and fp32 contiguous (C,) parameters on x's device."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"group_norm_fused: needs (B, C, H, W) float32 or "
                          f"bfloat16, got {tuple(x.shape)} {x.dtype}")
-    B, C, H, W = x.shape
+    C = x.shape[1]
     if C % groups:
         raise ValueError(f"group_norm_fused: {C} channels, {groups} groups")
+    if C % 8 or 2048 % C:
+        raise ValueError(f"group_norm_fused: built for 8 to 2048 channels "
+                         f"dividing 2048, got {C}")
+    for name, t in (("x", x), ("residual", residual)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"group_norm_fused: {name} is not 16-byte "
+                             "aligned")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"group_norm_fused: x with strides {x.stride()} is "
                          "not channels_last")
@@ -103,6 +107,21 @@ def group_norm_fused(params: nn.Module, x: torch.Tensor, groups: int,
             raise ValueError(f"group_norm_fused: {name} must be contiguous "
                              f"float32 ({C},) on {x.device}, got "
                              f"{tuple(p.shape)} {p.dtype} on {p.device}")
+
+
+def group_norm_fused(params: nn.Module, x: torch.Tensor, groups: int,
+                     eps: float = 1e-5, relu: bool = False,
+                     residual: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """GroupNorm(x) (+ residual) (ReLU) in x's dtype and strides. CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if x.device.type == "cpu":
+        return group_norm_plain(params, x, groups, eps, relu, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_fused: unsupported device {x.device}")
+    check_card_args(params, x, groups, residual)
+    B, C, H, W = x.shape
     out = torch.empty_like(x)
     lib = cuda_build.load("groupnorm")
     with torch.cuda.device(x.device):

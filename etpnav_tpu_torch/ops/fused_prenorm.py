@@ -12,8 +12,9 @@ about it.
 
 Layout contract: x (B, L, D) contiguous, D = heads * 64, L <= 64 on the
 card; `ln` is a `LayerNorm` and `attn` an `MHA` (q, k, v, o `Linear`s)
-whose fp32 parameters lie on x's device. In bf16 the kernel rounds the
-fp32 weights to bf16 as it loads them.
+whose fp32 parameters lie on x's device. In bf16 the chain rounds the
+fp32 weights to bf16 once per call, into a scratch the wrapper
+allocates.
 """
 
 from __future__ import annotations
@@ -40,11 +41,34 @@ prenorm_attention_plain_calls = cuda_build.LaunchCounter()
 def _bind(lib: ctypes.CDLL) -> None:
     i32, vp = ctypes.c_int, ctypes.c_void_p
     lib.etp_prenorm_attention.argtypes = (
-        [vp] * 15 + [i32] * 5 + [ctypes.c_float] * 2 + [vp])
+        [vp] * 16 + [i32] * 5 + [ctypes.c_float] * 2 + [vp])
     lib.etp_prenorm_attention.restype = ctypes.c_int
+    lib.etp_round_bf16.argtypes = [vp, vp, i32, vp]
+    lib.etp_round_bf16.restype = ctypes.c_int
 
 
 cuda_build.register_binder("prenorm_attention", _bind)
+
+
+def round_bf16(w: torch.Tensor) -> torch.Tensor:
+    """A contiguous fp32 tensor rounded to bf16 (nearest even) by the
+    chain's weight-rounding kernel, `round_bf16_kernel`, which the bf16
+    GEMMs of K-PRENORM and K-BLOCK read; `.to(torch.bfloat16)` on the
+    CPU. The kernel must equal that cast bit for bit."""
+    if w.device.type == "cpu":
+        return w.to(torch.bfloat16)
+    if (w.device.type != "cuda" or w.dtype != torch.float32
+            or not w.is_contiguous() or w.numel() % 4):
+        raise ValueError(f"round_bf16: needs a contiguous float32 CUDA "
+                         f"tensor of 4k elements, got {tuple(w.shape)} "
+                         f"{w.dtype} on {w.device}")
+    out = torch.empty(w.shape, dtype=torch.bfloat16, device=w.device)
+    lib = cuda_build.load("prenorm_attention")
+    with torch.cuda.device(w.device):
+        err = lib.etp_round_bf16(w.data_ptr(), out.data_ptr(), w.numel(),
+                                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "round_bf16")
+    return out
 
 
 def prenorm_attention_plain(x: torch.Tensor, ln: nn.Module, attn: nn.Module,
@@ -107,6 +131,8 @@ def prenorm_attention(x: torch.Tensor, ln: nn.Module, attn: nn.Module,
                              f"float32 {shape} on {x.device}, got "
                              f"{tuple(p.shape)} {p.dtype} on {p.device}")
     M = B * L
+    w_bf16 = (torch.empty(4, D, D, dtype=torch.bfloat16, device=x.device)
+              if x.dtype == torch.bfloat16 else None)
     a = torch.empty(M, D, dtype=x.dtype, device=x.device)
     qkv = torch.empty(3, M, D, dtype=x.dtype, device=x.device)
     ctx = torch.empty(M, D, dtype=x.dtype, device=x.device)
@@ -116,7 +142,8 @@ def prenorm_attention(x: torch.Tensor, ln: nn.Module, attn: nn.Module,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.etp_prenorm_attention(
             x.data_ptr(), *(p.data_ptr() for _, p, _ in params),
-            a.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            None if w_bf16 is None else w_bf16.data_ptr(), a.data_ptr(),
+            qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
             _DTYPES[x.dtype], B, L, D, num_heads, float(eps),
             1.0 / math.sqrt(_HEAD_DIM), stream)
     cuda_build.check(err, "prenorm_attention")

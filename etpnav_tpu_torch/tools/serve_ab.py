@@ -9,10 +9,16 @@ so it builds and runs that checkout's kernels. Turns go A B B A (repeated
 `--pairs` times) so that a drift of the host's speed falls on both. A turn
 reports, per program, the host-clock p50 and min of `--calls`
 synchronised calls and the device time of one profiled call (the sum of
-its kernels' and copies' device time, from torch.profiler).
+its kernels' and copies' device time, from torch.profiler), the copies'
+share of it (the pageable upload of the observations varies most between
+turns), the part spent in the port's own kernels by group (`KERNEL_GROUPS`: the
+K-PRENORM / K-BLOCK chain of csrc/dense.cuh, K-GN, K-ATT, K-NMS) and
+their launch counts. `--fused` runs the fused perception configuration
+(`use_fused_gn` and `use_fused_block` on) instead.
 
 Usage (from any directory; A and B are checkout roots):
     python3 etpnav_tpu_torch/tools/serve_ab.py A B [--pairs 2] [--calls 30]
+        [--fused]
 `--device cpu --config tiny` runs it on the CPU at the tiny config (the
 plain versions; device_ms is then 0).
 Prints one JSON line: every turn, and per checkout the median over its
@@ -22,6 +28,7 @@ turns of each number.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -30,7 +37,15 @@ import sys
 import time
 
 
-def _turn(root: str, calls: int, device: str, config: str) -> dict:
+# the port's kernels in a profile, by a piece of their demangled name:
+# dense.cuh's kernels live in namespace etp (K-PRENORM's and K-BLOCK's
+# chain: LayerNorm, weight rounding, GEMMs, head attention)
+KERNEL_GROUPS = {"dense_chain": "etp::", "group_norm": "group_norm",
+                 "attention": "attention_fwd", "nms": "nms"}
+
+
+def _turn(root: str, calls: int, device: str, config: str,
+          fused: bool) -> dict:
     """One checkout's numbers, in this process (which must not have
     imported `etpnav_tpu_torch` from elsewhere)."""
     sys.path.insert(0, os.path.abspath(root))
@@ -45,6 +60,10 @@ def _turn(root: str, calls: int, device: str, config: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = getattr(config_mod, f"{config}_config")()
+    if fused:
+        cfg = dataclasses.replace(
+            cfg, clip=dataclasses.replace(cfg.clip, use_fused_block=True),
+            depth=dataclasses.replace(cfg.depth, use_fused_gn=True))
     agent = Agent(cfg, init_agent_params(cfg, seed=0), device=device)
     on_card = agent.device.type == "cuda"
 
@@ -87,10 +106,19 @@ def _turn(root: str, calls: int, device: str, config: str) -> dict:
                 [ProfilerActivity.CUDA] if on_card else [])) as prof:
             fn()
             sync()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in ev)
+        copies_us = sum(e.self_device_time_total for e in ev
+                        if e.key.startswith(("Memcpy", "Memset")))
         res[k] = {"p50_ms": statistics.median(times[k]),
-                  "min_ms": min(times[k]), "device_ms": dev_us / 1e3}
+                  "min_ms": min(times[k]), "device_ms": dev_us / 1e3,
+                  "copies_ms": copies_us / 1e3}
+        for group, piece in KERNEL_GROUPS.items():
+            mine = [e for e in ev if piece in e.key]
+            res[k][f"{group}_ms"] = sum(
+                e.self_device_time_total for e in mine) / 1e3
+            res[k][f"{group}_launches"] = sum(e.count for e in mine)
     return res
 
 
@@ -103,13 +131,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--config", default="r2r", choices=("r2r", "tiny"))
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args(argv)
     turns = []
     for root in [args.a, args.b, args.b, args.a] * args.pairs:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn", root,
              "--calls", str(args.calls), "--device", args.device,
-             "--config", args.config],
+             "--config", args.config] + (["--fused"] if args.fused else []),
             capture_output=True, text=True, timeout=args.timeout)
         if proc.returncode != 0:
             raise RuntimeError(f"serve_ab: the turn of {root} exited "
@@ -120,7 +149,7 @@ def main(argv=None) -> dict:
         mine = [t for t in turns if t["root"] == root]
         summary[root] = {
             prog: {key: statistics.median(t[prog][key] for t in mine)
-                   for key in ("p50_ms", "min_ms", "device_ms")}
+                   for key in mine[0][prog]}
             for prog in ("perceive", "score_navigation")}
     return {"turns": turns, "median_over_turns": summary}
 
@@ -132,7 +161,9 @@ if __name__ == "__main__":
         turn_ap.add_argument("--calls", type=int, required=True)
         turn_ap.add_argument("--device", required=True)
         turn_ap.add_argument("--config", required=True)
+        turn_ap.add_argument("--fused", action="store_true")
         t = turn_ap.parse_args()
-        print(json.dumps(_turn(t.turn, t.calls, t.device, t.config)))
+        print(json.dumps(_turn(t.turn, t.calls, t.device, t.config,
+                               t.fused)))
     else:
         print(json.dumps(main()))

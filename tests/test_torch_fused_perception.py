@@ -440,3 +440,59 @@ def test_prenorm_kernel_path_calls_no_library_gemm():
     wrapper = inspect.getsource(tpre.prenorm_attention)
     for name in ("matmul", "linear", "einsum", "bmm", "@", "mm("):
         assert name not in wrapper, name
+
+
+def test_group_norm_card_args_refuse_non_channels_last():
+    """K-GN reads each sample as one contiguous channels_last slab in
+    16-byte vectors of 8 channels: its wrapper's check refuses
+    NCHW-contiguous input, a residual whose strides differ from x's, a
+    channel count the vectors do not tile and a misaligned base."""
+    gn = depth_resnet.GroupNorm(8)
+    x = torch.zeros(2, 8, 4, 4)
+    with pytest.raises(ValueError, match="channels_last"):
+        tgn.check_card_args(gn, x, 4, None)
+    xc = x.to(memory_format=torch.channels_last)
+    tgn.check_card_args(gn, xc, 4, None)
+    tgn.check_card_args(gn, xc, 4, torch.zeros_like(xc))
+    with pytest.raises(ValueError, match="residual"):
+        tgn.check_card_args(gn, xc, 4, x)
+    with pytest.raises(ValueError, match="channels"):
+        tgn.check_card_args(depth_resnet.GroupNorm(12), torch.zeros(
+            2, 12, 4, 4).to(memory_format=torch.channels_last), 4, None)
+    with pytest.raises(ValueError, match="aligned"):
+        tgn.check_card_args(gn, torch.zeros(1 + 2 * 4 * 4 * 8)[1:].view(
+            2, 4, 4, 8).permute(0, 3, 1, 2), 4, None)
+
+
+def _code(name: str) -> str:
+    src = (ROOT / "etpnav_tpu_torch/csrc" / name).read_text()
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
+def test_bf16_weight_rounding_is_nearest_even(rng):
+    """The bf16 chains of K-PRENORM and K-BLOCK round their fp32 weights
+    once per call (`round_bf16_kernel`, through `pack_bf16`, i.e.
+    `__floats2bfloat162_rn`) before any GEMM. Nearest even on the fp32
+    bits, ties included, is `.to(torch.bfloat16)`, the plain versions'
+    cast and `round_bf16`'s CPU version; chip_smoke.py holds the kernel
+    to it bit for bit on the card."""
+    dense = _code("dense.cuh")
+    body = dense[dense.index("round_bf16_kernel(RoundArgs"):]
+    body = body[:body.index("\n}\n")]
+    assert "pack_bf16(v.x, v.y)" in body and "pack_bf16(v.z, v.w)" in body
+    pack = dense[dense.index("uint32_t pack_bf16("):]
+    assert "__floats2bfloat162_rn(lo, hi)" in pack[:pack.index("}")]
+    for name in ("prenorm_attention.cu", "attention_block.cu"):
+        chain = _code(name)
+        chain = chain[chain.index("int run_chain("):]
+        assert (chain.index("launch_round_bf16(w, 4, D * D, w_bf16")
+                < chain.index("launch_gemm")), name
+    w = rng.standard_normal(4096).astype(np.float32)
+    u = w.view(np.uint32)
+    u[:1024] = (u[:1024] & 0xFFFF0000) | 0x8000       # exact ties
+    u[1024:2048] = (u[1024:2048] & 0xFFFF0000) | 0x7FFF
+    rne = ((u.astype(np.uint64) + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    want = rne.astype(np.uint32).view(np.float32)
+    got = tpre.round_bf16(torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
