@@ -7,7 +7,8 @@ CUDA toolkit):
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  1. environment: torch/CUDA versions, the card's name and power limit;
+  1. environment: torch/CUDA versions, the card's name and power limit,
+     whether PyYAML, transformers and tensorboard are installed;
   2. build: every CUDA kernel of the port (six sources: K-ATT with
      K-ATT-CHEAP, K-ATT-BWD, K-NMS, K-GN, K-PRENORM, K-BLOCK), from the
      sources in the checkout, one nvcc per source, all started together;
@@ -71,6 +72,23 @@ Phases, each reported on its own lines:
      within its tolerance, exact launch counts (K-ATT, K-ATT with the
      head-leading output, K-ATT-CHEAP) and no plain call; then K-ATT with
      `out_layout="head"` and K-ATT-CHEAP against their plain versions;
+  9. the entry points at r2r_config() width, each with every count at 0
+     before it and read after, exact launch counts and no plain call:
+     (a) seeded full-width files in the released layouts (pretrain
+     planner, waypoint predictor, openai CLIP as a TorchScript archive,
+     DD-PPO depth, the DDP-wrapped fine-tune policy), written from the
+     port's modules by this script's own exporters, converted back
+     through `convert_cli` and `convert_full_policy`, every tensor
+     exact; (b) `run_config(..., run_type="serve",
+     serve_nonblocking=True, device="cuda")` with MODEL.pretrained_path
+     = the planner file, 8 HTTP sessions in lockstep rounds, then the
+     same sessions through an in-process NavServer on the runner's
+     agent: equal actions, both step p50s and batch counts, for
+     `nav_use_bf16` False and True, then the in-process step with the
+     navigation stack in fp32 and bf16 in turns; (c) `run_config` trains one iteration (K-ATT-BWD), evaluates
+     and runs inference (fused configuration: K-GN, K-PRENORM) on
+     GeometricNavEnv episodes from its checkpoint, then the
+     checkpoint-folder eval loop;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -81,14 +99,18 @@ it does the same when no CUDA device is present.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1694,6 +1716,568 @@ def check_head_out_and_cheap(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the entry points (released checkpoints, run_config, HTTP)
+# ---------------------------------------------------------------------------
+
+# steps each HTTP / in-process session takes in phase 9b (fewer where the
+# agent stops first), in lockstep rounds of all live sessions
+RUNNER_STEPS = 5
+RUNNER_SESSIONS = 8
+# |stop_prob| over HTTP against in-process on the same weights: the gmap
+# bucket of a batch follows its largest graph, so the navigation GEMMs of
+# one session may run at another M in the two runs (other cuBLAS sum
+# orders); the actions themselves must be equal
+STOP_PROB_TOL = 1e-4
+
+
+def _bert_names(out: dict, key: str, block, self_name: str = "self"
+                ) -> None:
+    """An `AttentionBlock` under BertSelfAttention / BertSelfOutput names:
+    `key.self.*` (`key.att.*` in BertXAttention) and `key.output.*`."""
+    self_key = f"{key}.{self_name}"
+    for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+        lin = getattr(block.attn, ours)
+        out[f"{self_key}.{theirs}.weight"] = lin.weight
+        out[f"{self_key}.{theirs}.bias"] = lin.bias
+    out[f"{key}.output.dense.weight"] = block.out.dense.weight
+    out[f"{key}.output.dense.bias"] = block.out.dense.bias
+    out[f"{key}.output.LayerNorm.weight"] = block.out.ln.weight
+    out[f"{key}.output.LayerNorm.bias"] = block.out.ln.bias
+
+
+def _pair(out: dict, key: str, m) -> None:
+    out[f"{key}.weight"] = m.weight
+    out[f"{key}.bias"] = m.bias
+
+
+def _ffn_names(out: dict, inter: str, output: str, ffn) -> None:
+    _pair(out, f"{inter}.dense", ffn.intermediate)
+    _pair(out, f"{output}.dense", ffn.output.dense)
+    _pair(out, f"{output}.LayerNorm", ffn.output.ln)
+
+
+def export_planner(p) -> dict:
+    """The port's `PlannerParams` under GlocalTextPathNavCMT's names
+    (vilmodel_cmt.py:663-750), independent of `models/convert.py`."""
+    out = {}
+    e = p.embeddings
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[f"embeddings.{name}.weight"] = getattr(e, name)
+    _pair(out, "embeddings.LayerNorm", e.ln)
+    for i, layer in enumerate(p.lang_encoder):
+        key = f"lang_encoder.layer.{i}"
+        _bert_names(out, f"{key}.attention", layer.attention)
+        _ffn_names(out, f"{key}.intermediate", f"{key}.output", layer.ffn)
+    ie = p.img_embeddings
+    for ours, theirs in (("img_linear", "img_linear"),
+                         ("img_ln", "img_layer_norm"),
+                         ("dep_linear", "dep_linear"),
+                         ("dep_ln", "dep_layer_norm"),
+                         ("loc_linear", "loc_linear"),
+                         ("loc_ln", "loc_layer_norm"), ("ln", "layer_norm")):
+        _pair(out, f"img_embeddings.{theirs}", getattr(ie, ours))
+    out["img_embeddings.nav_type_embedding.weight"] = ie.nav_type_embedding
+    for i, layer in enumerate(ie.pano_encoder.layers):
+        key = f"img_embeddings.pano_encoder.layers.{i}"
+        a = layer.attn
+        out[f"{key}.self_attn.in_proj_weight"] = torch.cat(
+            [a.q.weight, a.k.weight, a.v.weight])
+        out[f"{key}.self_attn.in_proj_bias"] = torch.cat(
+            [a.q.bias, a.k.bias, a.v.bias])
+        _pair(out, f"{key}.self_attn.out_proj", a.o)
+        for name in ("norm1", "norm2", "linear1", "linear2"):
+            _pair(out, f"{key}.{name}", getattr(layer, name))
+    _pair(out, "img_embeddings.pano_encoder.norm", ie.pano_encoder.final_ln)
+    ge = p.global_encoder
+    _pair(out, "global_encoder.gmap_pos_embeddings.0",
+          ge.gmap_pos_embeddings.dense)
+    _pair(out, "global_encoder.gmap_pos_embeddings.1",
+          ge.gmap_pos_embeddings.ln)
+    out["global_encoder.gmap_step_embeddings.weight"] = \
+        ge.gmap_step_embeddings
+    for i, layer in enumerate(ge.encoder):
+        key = f"global_encoder.encoder.x_layers.{i}"
+        _bert_names(out, f"{key}.visual_attention", layer.visual_attention,
+                    "att")
+        _bert_names(out, f"{key}.visn_self_att", layer.visn_self_att)
+        _ffn_names(out, f"{key}.visn_inter", f"{key}.visn_output",
+                   layer.visn_ffn)
+    _pair(out, "global_encoder.sprel_linear", ge.sprel_linear)
+    _pair(out, "global_sap_head.net.0", p.global_sap_head.dense1)
+    _pair(out, "global_sap_head.net.2", p.global_sap_head.ln)
+    _pair(out, "global_sap_head.net.4", p.global_sap_head.dense2)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def export_waypoint(w) -> dict:
+    """`WaypointParams` under BinaryDistPredictor_TRM's names
+    (TRM_net.py:9-60)."""
+    out = {}
+    _pair(out, "visual_fc_depth.1", w.visual_fc_depth)
+    for i, layer in enumerate(w.waypoint_trm):
+        key = f"waypoint_TRM.bert.encoder.layer.{i}"
+        _bert_names(out, f"{key}.attention", layer.attention)
+        _ffn_names(out, f"{key}.intermediate", f"{key}.output", layer.ffn)
+    _pair(out, "vis_classifier.0", w.vis_classifier.dense1)
+    _pair(out, "vis_classifier.2", w.vis_classifier.dense2)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def export_clip(c, cfg) -> dict:
+    """`ClipParams` under openai CLIP's `visual.*` names: the patch matrix
+    (ps*ps*3, width) in (ps, ps, 3) order back to the conv's (width, 3,
+    ps, ps) kernel, q/k/v packed into in_proj."""
+    ps, w = cfg.patch_size, cfg.width
+    out = {"conv1.weight": c.patch_embed.reshape(ps, ps, 3, w).permute(
+               3, 2, 0, 1),
+           "class_embedding": c.class_embedding,
+           "positional_embedding": c.positional_embedding,
+           "proj": c.proj}
+    _pair(out, "ln_pre", c.ln_pre)
+    _pair(out, "ln_post", c.ln_post)
+    for i, b in enumerate(c.blocks):
+        key = f"transformer.resblocks.{i}"
+        a = b.attn
+        out[f"{key}.attn.in_proj_weight"] = torch.cat(
+            [a.q.weight, a.k.weight, a.v.weight])
+        out[f"{key}.attn.in_proj_bias"] = torch.cat(
+            [a.q.bias, a.k.bias, a.v.bias])
+        _pair(out, f"{key}.attn.out_proj", a.o)
+        _pair(out, f"{key}.ln_1", b.ln_1)
+        _pair(out, f"{key}.ln_2", b.ln_2)
+        _pair(out, f"{key}.mlp.c_fc", b.mlp_fc)
+        _pair(out, f"{key}.mlp.c_proj", b.mlp_proj)
+    return {f"visual.{k}": v.detach().contiguous().clone()
+            for k, v in out.items()}
+
+
+def export_depth(d) -> dict:
+    """`DepthParams` under habitat's ResNetEncoder names after the
+    resnet_encoders.py:40-47 surgery (`backbone.*`, `compression.*`;
+    GroupNorms at convs.{1,4,7})."""
+    out = {"backbone.conv1.weight": d.stem_conv.weight,
+           "compression.0.weight": d.compression_conv.weight}
+    _pair(out, "backbone.bn1", d.stem_gn)
+    _pair(out, "compression.1", d.compression_gn)
+    for li in range(1, 5):
+        for bi, blk in enumerate(getattr(d, f"layer{li}")):
+            key = f"backbone.layer{li}.{bi}"
+            for j, conv, gn in ((0, "conv1", "gn1"), (3, "conv2", "gn2"),
+                                (6, "conv3", "gn3")):
+                out[f"{key}.convs.{j}.weight"] = getattr(blk, conv).weight
+                _pair(out, f"{key}.convs.{j + 1}", getattr(blk, gn))
+            if hasattr(blk, "down_conv"):
+                out[f"{key}.downsample.0.weight"] = blk.down_conv.weight
+                _pair(out, f"{key}.downsample.1", blk.down_gn)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+class _Archive(torch.nn.Module):
+    def forward(self, x):
+        return x
+
+
+def save_torchscript(sd: dict, path: str) -> None:
+    """`sd` as a TorchScript archive, as openai CLIP's `ViT-B-32.pt`."""
+    root = _Archive()
+    for name, t in sd.items():
+        *mods, leaf = name.split(".")
+        m = root
+        for part in mods:
+            if not hasattr(m, part):
+                m.add_module(part, torch.nn.Module())
+            m = getattr(m, part)
+        m.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+    torch.jit.trace(root, torch.zeros(1)).save(path)
+
+
+def check_equal(name: str, got: dict, want: dict) -> int:
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), v.cpu()):
+            raise AssertionError(f"{name}: {k} differs")
+    return len(want)
+
+
+def released_files(card: str, params, cfg, tmp: str) -> dict:
+    """Phase 9a: seeded full-width files in the released layouts, written
+    by the exporters above from the port's modules; each converted back
+    through `convert_cli` (the CLI's key surgery and checkpoint) or
+    `convert_full_policy`, every tensor checked exactly against the
+    module it was exported from."""
+    from etpnav_tpu_torch import convert_cli
+    from etpnav_tpu_torch.models import clip_vit, depth_resnet, planner
+    from etpnav_tpu_torch.models.convert import (
+        convert_full_policy,
+        load_jax_tree,
+    )
+    from etpnav_tpu_torch.training.checkpoints import load_checkpoint
+    t0 = time.perf_counter()
+    pl = export_planner(params.planner)
+    dep = export_depth(params.depth)
+    files = {
+        # released pretrain layout: backbone under 'bert.', SAP head at
+        # the top level, a pretrain head the converter ignores
+        "planner": {**{(k if k.startswith("global_sap_head.")
+                        else f"bert.{k}"): v for k, v in pl.items()},
+                    "mlm_head.predictions.bias":
+                        torch.zeros(cfg.planner.vocab_size)},
+        "waypoint": {"predictor": {f"module.{k}": v for k, v in
+                                   export_waypoint(params.waypoint).items()}},
+        "clip": export_clip(params.clip, cfg.clip),
+        "depth": {"state_dict": {
+            f"actor_critic.net.visual_encoder.{k}": v
+            for k, v in dep.items()}},
+    }
+    paths = {}
+    for kind, sd in files.items():
+        paths[kind] = os.path.join(tmp, f"released_{kind}.pt")
+        if kind == "clip":
+            save_torchscript(sd, paths[kind])
+        else:
+            torch.save(sd, paths[kind])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ts = torch.load(paths["clip"], map_location="cpu",
+                        weights_only=False)
+    ts_path = (f"torch.load -> {type(ts).__name__}"
+               + (" (dispatched to torch.jit.load)"
+                  if any("TorchScript" in str(w.message) for w in caught)
+                  else ""))
+    del ts
+    n = 0
+    for kind in files:
+        out = os.path.join(tmp, f"converted_{kind}.pt")
+        convert_cli.main(["--kind", kind, "--torch-ckpt", paths[kind],
+                          "--out", out])
+        n += check_equal(f"convert_cli {kind}", load_checkpoint(out),
+                         getattr(params, kind).state_dict())
+        os.remove(out)
+    # released fine-tune layout (ss_trainer_ETP.py:74-83,211-212): the
+    # DDP-wrapped planner and the frozen encoders the policy owns
+    policy = {"state_dict": {
+        **{f"net.module.vln_bert.{k}": v for k, v in pl.items()},
+        **{f"net.depth_encoder.visual_encoder.{k}": v
+           for k, v in dep.items()},
+        **{f"net.rgb_encoder.model.{k}": v
+           for k, v in files["clip"].items()}}, "iteration": 12000}
+    policy_path = os.path.join(tmp, "released_policy.pth")
+    torch.save(policy, policy_path)
+    trees = convert_full_policy(torch.load(policy_path, map_location="cpu"),
+                                planner_cfg=cfg.planner, clip_cfg=cfg.clip,
+                                depth_cfg=cfg.depth)
+    os.remove(policy_path)
+    for kind, cls, sub in (("planner", planner.PlannerParams, cfg.planner),
+                           ("clip", clip_vit.ClipParams, cfg.clip),
+                           ("depth", depth_resnet.DepthParams, cfg.depth)):
+        module = cls(sub)
+        load_jax_tree(module, trees[kind], kind)
+        n += check_equal(f"convert_full_policy {kind}", module.state_dict(),
+                         getattr(params, kind).state_dict())
+    for kind in ("waypoint", "clip", "depth"):
+        os.remove(paths[kind])
+    res = {"tensors_exact": n, "torchscript": ts_path,
+           "seconds": time.perf_counter() - t0}
+    log(f"runner 9a: released layouts (pretrain planner, waypoint, openai "
+        f"CLIP TorchScript, DD-PPO depth, fine-tune policy) at r2r width: "
+        f"{json.dumps(res)} [{card}]")
+    return {"planner_path": paths["planner"], **res}
+
+
+@contextlib.contextmanager
+def program_calls():
+    """Counts calls of the agent's three programs for every `Agent` (the
+    runner builds its own), by wrapping the class's methods."""
+    from etpnav_tpu_torch.training.agent import Agent
+    calls = collections.Counter()
+    saved = {}
+    for attr, name in (("perceive", "perceive"),
+                       ("score_navigation", "navigation"),
+                       ("encode_text", "text")):
+        saved[attr] = Agent.__dict__[attr]
+        setattr(Agent, attr, counted(saved[attr], calls, name))
+    try:
+        yield calls
+    finally:
+        for attr, fn in saved.items():
+            setattr(Agent, attr, fn)
+
+
+def runner_counts(name: str, counters, calls, per: dict,
+                  learn_steps: int = 0) -> dict:
+    """The launch counts since the counters' reset, exactly what the
+    program calls (and learn steps) make: plain versions count 0."""
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: sum(per[p].get(k, 0) * calls[p] for p in per)
+            for k in counters}
+    want["attention_fwd"] += LEARN_ATTENTIONS * learn_steps
+    want["attention_bwd"] += LEARN_ATTENTIONS * learn_steps
+    if counts != want:
+        raise AssertionError(f"runner {name}: launches {counts} != {want} "
+                             f"for {dict(calls)}, {learn_steps} learn steps")
+    return {k: v for k, v in counts.items() if v}
+
+
+def drive_sessions(client, cfg, seed: int = 500) -> list:
+    """RUNNER_SESSIONS sessions through `client` (an HTTP client or a
+    NavServer) in lockstep rounds: each round steps every live session
+    concurrently, one thread each, and waits for all. Observations come
+    from one seeded stream per session; a session moves to the ghost its
+    action picks."""
+    H, Hd = cfg.clip.image_size, cfg.depth.input_size
+    ori = np.array([0.0, 0.0, 0.0, 1.0])
+    sessions = []
+    for i in range(RUNNER_SESSIONS):
+        rng = np.random.default_rng(seed + i)
+        sid = client.create_session(rng.integers(1, cfg.planner.vocab_size,
+                                                 40))
+        sessions.append({"sid": sid, "rng": rng, "pos": np.zeros(3),
+                         "results": [], "ms": [], "done": False})
+
+    def one(s, errors):
+        try:
+            rgb = s["rng"].integers(0, 256, (12, H, H, 3), np.uint8)
+            dep = s["rng"].random((12, Hd, Hd, 1), np.float32)
+            t = time.perf_counter()
+            res = client.step(s["sid"], rgb, dep, s["pos"], ori)
+            s["ms"].append((time.perf_counter() - t) * 1e3)
+            s["results"].append(res)
+            if res["action"]["act"] == 4:
+                s["pos"] = np.asarray(res["action"]["ghost_pos"], np.float64)
+            s["done"] = res["done"]
+        except Exception as e:           # reported by the main thread
+            errors.append(repr(e))
+
+    for _ in range(RUNNER_STEPS):
+        live = [s for s in sessions if not s["done"]]
+        if not live:
+            break
+        errors = []
+        threads = [threading.Thread(target=one, args=(s, errors))
+                   for s in live]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"runner sessions: {errors or 'hung'}")
+    for s in sessions:
+        client.close_session(s["sid"])
+    return sessions
+
+
+def same_action(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if k == "back_path":
+            if (x is None) != (y is None) or len(x or []) != len(y or []):
+                return False
+            if any(v != w or not np.array_equal(p, q)
+                   for (v, p), (w, q) in zip(x or [], y or [])):
+                return False
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def nav_dtype_turns(card: str, cfg, agent, rounds: int = 2) -> dict:
+    """The in-process serving step with the navigation stack in fp32
+    (serving's default) and in bf16 (PLANNER.nav_use_bf16), on the same
+    weights, in turns (A B B A, `rounds` times): RUNNER_SESSIONS sessions
+    x RUNNER_STEPS lockstep rounds per turn; host clock per step."""
+    from etpnav_tpu_torch.serving import NavServer
+    from etpnav_tpu_torch.training.agent import Agent
+    cfgs = {"fp32": cfg, "bf16": dataclasses.replace(
+        cfg, planner=dataclasses.replace(cfg.planner, nav_use_bf16=True))}
+    servers = {"fp32": NavServer(cfgs["fp32"], agent, max_batch=8),
+               "bf16": NavServer(cfgs["bf16"], Agent(
+                   cfgs["bf16"], agent.params, device=agent.device),
+                   max_batch=8)}
+    ms = {k: [] for k in servers}
+    try:
+        for server in servers.values():
+            server.warmup()
+        for _ in range(rounds):
+            for k in ("fp32", "bf16", "bf16", "fp32"):
+                ms[k] += [m for s in drive_sessions(servers[k], cfg, 700)
+                          for m in s["ms"]]
+    finally:
+        for server in servers.values():
+            server.shutdown()
+    res = {k: {"step_p50_ms": statistics.median(v), "min_ms": min(v),
+               "n": len(v)} for k, v in ms.items()}
+    log(f"runner 9b nav dtype in turns (in-process, 8 sessions): "
+        f"{json.dumps(res)} [{card}]")
+    return res
+
+
+def http_vs_in_process(card: str, cfg, planner_path: str, counters,
+                       nav_use_bf16) -> dict:
+    """Phase 9b: `run_config(..., run_type="serve", serve_nonblocking=True,
+    device="cuda")` with MODEL.pretrained_path = the released planner
+    file; RUNNER_SESSIONS HTTP clients, then the same sessions through an
+    in-process NavServer on the runner's agent. Equal actions step for
+    step, the step p50 of both, exact launch counts."""
+    from etpnav_tpu_torch.run import run_config
+    from etpnav_tpu_torch.serving import NavServer
+    from etpnav_tpu_torch.serving_http import HttpNavClient
+    run_cfg = dataclasses.replace(cfg, pretrained_path=planner_path,
+                                  planner=dataclasses.replace(
+                                      cfg.planner, nav_use_bf16=nav_use_bf16))
+    for c in counters.values():
+        c.reset()
+    with program_calls() as calls:
+        httpd, nav = run_config(run_cfg, run_type="serve",
+                                serve_nonblocking=True, device="cuda",
+                                host="127.0.0.1", port=0)
+        try:
+            nav.warmup()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            before = calls["perceive"]
+            over_http = drive_sessions(HttpNavClient(url), cfg)
+            http_batches = calls["perceive"] - before
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            nav.shutdown()
+        local = NavServer(nav.cfg, nav.agent, max_batch=8)
+        try:
+            before = calls["perceive"]
+            in_process = drive_sessions(local, cfg)
+            local_batches = calls["perceive"] - before
+        finally:
+            local.shutdown()
+        turns = (nav_dtype_turns(card, nav.cfg, nav.agent)
+                 if nav_use_bf16 is None else None)
+        torch.cuda.synchronize()
+    counts = runner_counts(f"serve nav_bf16={nav_use_bf16}", counters,
+                           calls, PER_CALL["default"])
+    steps = worst = 0
+    for a, b in zip(over_http, in_process):
+        if len(a["results"]) != len(b["results"]):
+            raise AssertionError("runner serve: episode lengths differ")
+        for x, y in zip(a["results"], b["results"]):
+            if not (same_action(x["action"], y["action"])
+                    and x["done"] == y["done"]
+                    and x["num_nodes"] == y["num_nodes"]
+                    and x["num_ghosts"] == y["num_ghosts"]):
+                raise AssertionError(f"runner serve: HTTP {x} != "
+                                     f"in-process {y}")
+            worst = max(worst, abs(x["stop_prob"] - y["stop_prob"]))
+            steps += 1
+    if worst > STOP_PROB_TOL:
+        raise AssertionError(f"runner serve: stop_prob differs by {worst}")
+    res = {"nav_use_bf16": bool(nav.cfg.planner.nav_use_bf16),
+           "sessions": len(over_http), "steps": steps,
+           "stops": sum(s["done"] for s in over_http),
+           "max_stop_prob_diff": worst,
+           "http_step_p50_ms": statistics.median(
+               m for s in over_http for m in s["ms"]),
+           "in_process_step_p50_ms": statistics.median(
+               m for s in in_process for m in s["ms"]),
+           "http_batches": http_batches, "in_process_batches": local_batches,
+           "nav_dtype_turns": turns, "calls": dict(calls),
+           "launches": counts}
+    log(f"runner 9b serve: {json.dumps(res)} [{card}]")
+    return res
+
+
+def runner_training(card: str, cfg, counters, tmp: str) -> dict:
+    """Phase 9c: `run_config` trains one iteration (writes its
+    checkpoint), evaluates and runs inference on GeometricNavEnv episodes
+    from it (inference in the fused configuration, set as YAML sets it),
+    then the checkpoint-folder eval loop; exact launch counts for each."""
+    from etpnav_tpu_torch.config_yaml import config_from_dict
+    from etpnav_tpu_torch.run import run_config
+    ck = os.path.join(tmp, "checkpoints")
+    n_eps = 8
+    cfg = dataclasses.replace(
+        cfg, il=dataclasses.replace(cfg.il, iters=1, log_every=1000),
+        results_dir=os.path.join(tmp, "results"))
+    fused = config_from_dict({"BASE": "r2r",
+                              "CLIP": {"use_fused_block": True},
+                              "DEPTH": {"use_fused_gn": True}})
+    preds = os.path.join(tmp, "predictions.json")
+    loop_cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, ckpt_path_dir=ck))
+    ckpt = os.path.join(ck, "ckpt_iter1.pt")
+    runs = (("train", cfg, {"run_type": "train"}, "default", 1),
+            ("eval", cfg, {"run_type": "eval", "ckpt": ckpt,
+                           "episode_count": n_eps}, "default", 0),
+            ("inference (fused)", fused,
+             {"run_type": "inference", "ckpt": ckpt,
+              "episode_count": n_eps, "predictions_file": preds},
+             "fused", 0),
+            ("eval loop", loop_cfg, {"run_type": "eval",
+                                     "episode_count": n_eps}, "default", 0))
+    res = {}
+    for name, run_cfg, opts, per, learn in runs:
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with program_calls() as calls:
+            out = run_config(run_cfg, device="cuda", ckpt_dir=ck, **opts)
+            torch.cuda.synchronize()
+        counts = runner_counts(name, counters, calls, PER_CALL[per], learn)
+        res[name] = {"seconds": time.perf_counter() - t0,
+                     "calls": dict(calls), "launches": counts}
+        if name == "train":
+            if sorted(os.listdir(ck)) != ["ckpt_iter1.pt"] or not \
+                    np.isfinite(out["IL_loss"]):
+                raise AssertionError(f"runner train: {os.listdir(ck)}, "
+                                     f"{out}")
+            res[name]["IL_loss"] = out["IL_loss"]
+        elif name == "eval":
+            if out.get("n_episodes", 0) < n_eps:
+                raise AssertionError(f"runner eval: {out}")
+            res[name]["stats"] = out
+        elif name.startswith("inference"):
+            with open(preds) as f:
+                written = json.load(f)
+            if len(written) < n_eps or set(written) != set(out):
+                raise AssertionError(f"runner inference: {len(written)} "
+                                     "predictions")
+            res[name]["episodes"] = len(written)
+        else:
+            if list(out) != [ckpt] or not os.path.exists(os.path.join(
+                    cfg.results_dir, "stats_ckpt_1_val_unseen.json")):
+                raise AssertionError(f"runner eval loop: {list(out)}")
+            res[name]["stats"] = out[ckpt]
+    if not (res["train"]["launches"].get("attention_bwd")
+            and res["inference (fused)"]["launches"].get("group_norm_fused")
+            and res["inference (fused)"]["launches"].get(
+                "prenorm_attention")):
+        raise AssertionError(f"runner: a kernel did not launch: {res}")
+    log(f"runner 9c train/eval/inference/eval loop: {json.dumps(res)} "
+        f"[{card}]")
+    return res
+
+
+def runner_phase(card: str, cfg, host_params, counters) -> dict:
+    """Phase 9 at r2r_config() width, in a temporary directory."""
+    with tempfile.TemporaryDirectory(prefix="etpnav_runner_") as tmp:
+        files = released_files(card, host_params, cfg, tmp)
+        serve = {str(bf16): http_vs_in_process(
+                     card, cfg, files["planner_path"], counters, bf16)
+                 for bf16 in (None, True)}
+        torch.cuda.empty_cache()
+        train = runner_training(card, cfg, counters, tmp)
+    total = collections.Counter()
+    for r in [*serve.values(), *train.values()]:
+        total.update(r["launches"])
+    return {"files": files, "serve": serve, "train": train,
+            "launches": dict(total)}
+
+
+# ---------------------------------------------------------------------------
 
 # the design of the bf16 attention kernels
 TC_DESIGN = "tensor cores (mma.sync)"
@@ -1785,6 +2369,10 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     log(f"card: {card}")
+    import importlib.util
+    log("packages: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("yaml", "transformers", "tensorboard")))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1882,6 +2470,10 @@ def main() -> int:
     tool_res = run_tools(card, counters)
     t12_rows = check_head_out_and_cheap(card)
     log(f"phase 8b done at {time.perf_counter() - T0:.0f} s")
+    # phase 9
+    runner = runner_phase(card, cfg, host_params.cpu(), counters)
+    run_launches = runner["launches"]
+    log(f"phase 9 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -1896,6 +2488,7 @@ def main() -> int:
     t2 = t12_rows["cheap/bfloat16"]
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
+         "launches_runner": run_launches.get("attention_fwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
@@ -1909,6 +2502,7 @@ def main() -> int:
          "design": TC_DESIGN, "kernel_ms": a["kernel_ms"],
          "library_kernel_ms": a["library_kernel_ms"]},
         {"name": "heatmap_nms_fused", "route": "cuda",
+         "launches_runner": run_launches.get("heatmap_nms_fused", 0),
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
          "launches": res["counts"]["heatmap_nms_fused"],
@@ -1917,6 +2511,7 @@ def main() -> int:
          "bound_by": n["bound_by"], "library_ms": None,
          "at": "logits (8,120,12) fp32", "kernel_ms": n["kernel_ms"]},
         {"name": "group_norm_fused", "route": "cuda",
+         "launches_runner": run_launches.get("group_norm_fused", 0),
          "source": "etpnav_tpu_torch/csrc/groupnorm.cu",
          "replaces": "etpnav_tpu/ops/pallas_groupnorm.py:57 "
                      "group_norm_fused",
@@ -1937,6 +2532,7 @@ def main() -> int:
          "plain_ms_per_perceive": sum(r["plain_ms"] * r["per_perceive"]
                                       for r in gn_bf16.values())},
         {"name": "prenorm_attention", "route": "cuda",
+         "launches_runner": run_launches.get("prenorm_attention", 0),
          "source": "etpnav_tpu_torch/csrc/prenorm_attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:559 "
                      "fused_prenorm_attention_v2; :456 "
@@ -1950,6 +2546,7 @@ def main() -> int:
          "kernel_ms": p["kernel_ms"],
          "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"]},
         {"name": "attention_bwd", "route": "cuda",
+         "launches_runner": run_launches.get("attention_bwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -2027,6 +2624,11 @@ def main() -> int:
         f"{learn_par['worst_grad_rel']:.3g}, tolerance share "
         f"{learn_par['worst_tol_share']:.3g}; K-ATT dropout rows "
         f"{len(drop_rows)}; total {time.perf_counter() - T0:.0f} s [{card}]")
+    for k, r in runner["serve"].items():
+        log(f"runner serve (nav_use_bf16 {r['nav_use_bf16']}): HTTP step "
+            f"p50 {r['http_step_p50_ms']:.2f} ms, in-process "
+            f"{r['in_process_step_p50_ms']:.2f} ms over {r['steps']} steps "
+            f"of {r['sessions']} sessions, actions equal [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

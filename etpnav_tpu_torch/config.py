@@ -6,8 +6,8 @@ configuration reads the same in both packages. Switches that only the
 JAX package can act on (rematerialisation `remat`/`remat_nav`, the bf16
 attention-probs chain `attn_probs_bf16`, the dropout PRNG choices
 `rng_impl`/`dropout_bits8`, `agg_dense_device`) and the sections of the
-pretraining, DAgger, evaluation and data-path tooling are not here: each
-comes back with the slice that reads it. Several comments
+pretraining, DAgger and device-mesh tooling are not here: each comes
+back with the slice that reads it (`config_yaml.py` refuses them). Several comments
 below record measurements taken on a TPU for the JAX package; they
 explain the defaults there and say nothing about the port's speed on a
 GPU.
@@ -154,7 +154,11 @@ class ILConfig:
     """Schedule-sampling IL fine-tune knobs (run_r2r/iter_train.yaml)."""
 
     iters: int = 15000
+    log_every: int = 200         # checkpoint every N iterations (run.py)
     lr: float = 1e-5
+    # envs per device; the learn step's batch is the env pool, and the
+    # runner warns when NUM_ENVIRONMENTS differs from this
+    batch_size: int = 8
     max_traj_len: int = 20       # max planner steps per episode
     ml_weight: float = 1.0
     sample_ratio: float = 0.75
@@ -189,14 +193,67 @@ class ILConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """EVAL section (iter_train.yaml; ss_trainer_ETP.py:513-641)."""
+
+    split: str = "val_unseen"
+    episode_count: int = -1          # -1 = every episode of the split
+    ckpt_path_dir: str = ""          # folder to poll (eval_loop)
+    fast_eval: bool = False          # every 5th episode (ss_trainer:569)
+    use_ckpt_config: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """INFERENCE section (iter_train.yaml; ss_trainer_ETP.py:643-756)."""
+
+    split: str = "test"
+    ckpt_path: str = ""
+    predictions_file: str = "predictions.json"
+    format: str = ""                 # 'r2r' | 'rxr' (jsonl); '' = task_type
+    episode_count: int = -1
+    sample: bool = False             # sample actions instead of argmax
+    use_ckpt_config: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataPathsConfig:
+    """On-disk dataset layout for the habitat production path (reference
+    TASK_CONFIG/DATASET keys: run_r2r/r2r_vlnce.yaml DATASET section,
+    habitat_extensions/config/default.py:120-134). '{split}' is
+    interpolated like the reference's DATA_PATH."""
+
+    task_config: str = ""        # habitat TASK yaml (BASE_TASK_CONFIG_PATH)
+    data_path: str = ""          # episodes: .../{split}/{split}.json.gz
+    scenes_dir: str = ""         # MP3D scene datasets (DATASET.SCENES_DIR)
+    gt_path: str = ""            # ndtw gt: .../{split}/{split}_gt.json.gz
+    roles: Tuple[str, ...] = ("guide",)   # RxR DATASET.ROLES
+    languages: Tuple[str, ...] = ("*",)   # RxR DATASET.LANGUAGES
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
+    task_type: str = "r2r"       # or 'rxr'
     planner: PlannerConfig = PlannerConfig()
     waypoint: WaypointConfig = WaypointConfig()
     clip: ClipConfig = ClipConfig()
     depth: DepthEncoderConfig = DepthEncoderConfig()
     graph: GraphConfig = GraphConfig()
     il: ILConfig = ILConfig()
+    eval: EvalConfig = EvalConfig()
+    inference: InferenceConfig = InferenceConfig()
+    paths: DataPathsConfig = DataPathsConfig()
     seed: int = 0
+    # MODEL.pretrained_path: a released PyTorch pretrain checkpoint to
+    # convert and load into the planner before fine-tuning
+    # (iter_train.yaml)
+    pretrained_path: str = ""
+    # top-level run layout (iter_train.yaml NUM_ENVIRONMENTS + *_DIR keys)
+    num_environments: int = 8
+    tensorboard_dir: str = "logs/tensorboard"
+    checkpoint_folder: str = "checkpoints"
+    results_dir: str = "logs/eval_results"
+    video_dir: str = "logs/video"
 
 
 def pick_bucket(need: int, buckets, cap: int) -> int:
@@ -219,7 +276,7 @@ def r2r_config(**overrides) -> ExperimentConfig:
                             gmap_len_buckets=(16, 32, 48, 64))
     il = ILConfig(train_traj_buckets=(12, 20),
                   train_gmap_buckets=(48, 64, 96))
-    cfg = ExperimentConfig(planner=planner, il=il)
+    cfg = ExperimentConfig(task_type="r2r", planner=planner, il=il)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -237,7 +294,7 @@ def rxr_config(**overrides) -> ExperimentConfig:
     il = ILConfig(iters=20000, lr=1.5e-5, expert_policy="ndtw",
                   max_text_len=200, train_traj_buckets=(12, 20),
                   train_gmap_buckets=(48, 64, 96))
-    cfg = ExperimentConfig(planner=planner, il=il)
+    cfg = ExperimentConfig(task_type="rxr", planner=planner, il=il)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -265,7 +322,8 @@ def tiny_config(**overrides) -> ExperimentConfig:
     # CHW-flat 64 matching waypoint depth_feat_shape (16,2,2)
     depth = DepthEncoderConfig(input_size=64, baseplanes=8, ngroups=4,
                                layers=(1, 1, 1, 1), output_size=64)
-    il = ILConfig(iters=2, max_traj_len=4, max_text_len=16)
-    cfg = ExperimentConfig(planner=planner, waypoint=waypoint, clip=clip,
-                           depth=depth, il=il)
+    il = ILConfig(iters=2, log_every=1, batch_size=2, max_traj_len=4,
+                  max_text_len=16)
+    cfg = ExperimentConfig(task_type="r2r", planner=planner,
+                           waypoint=waypoint, clip=clip, depth=depth, il=il)
     return dataclasses.replace(cfg, **overrides)

@@ -9,15 +9,29 @@ natural projection layout, the last block is the Lq=1 cls-row case. With
 `ClipConfig.use_fused_block` the attention half of blocks 1..L-1 is one
 K-PRENORM op instead (`ops/fused_prenorm.py`): 11 per call at ViT-B/32
 depth; the MLP half and the cls-row last block are unchanged.
+
+`encode_image` takes images already normalised (`preprocess_rgb`), the
+unfolded path the HF golden checks. The converters take the openai
+`visual.*` state dict and HF's CLIPVisionModelWithProjection to the JAX
+package's tree layout (`models/convert.py`), where the patch conv's
+(width, 3, ps, ps) kernel becomes the (ps*ps*3, width) matrix in
+`_patchify`'s (ps, ps, 3) row-major order.
 """
 
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from etpnav_tpu_torch.config import ClipConfig
+from etpnav_tpu_torch.models.tree import (
+    split_in_proj,
+    stack_layers,
+    to_numpy,
+)
 from etpnav_tpu_torch.ops.attention import MHA, mha
 from etpnav_tpu_torch.ops.basic import (
     LayerNorm,
@@ -62,6 +76,15 @@ class ClipParams(nn.Module):
         self.proj = nn.Parameter(torch.zeros(cfg.width, cfg.output_dim))
 
 
+def preprocess_rgb(rgb_uint8: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> normalized fp32 (ConvertImageDtype+Normalize,
+    resnet_encoders.py:263-267)."""
+    dev = rgb_uint8.device
+    x = rgb_uint8.to(torch.float32) / 255.0
+    return ((x - torch.from_numpy(CLIP_MEAN).to(dev))
+            / torch.from_numpy(CLIP_STD).to(dev))
+
+
 def _patchify(images: torch.Tensor, ps: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, P, ps*ps*C), row-major patch layout, in the
     input dtype."""
@@ -102,6 +125,16 @@ def _trunk(params: ClipParams, cfg: ClipConfig, x: torch.Tensor,
     return matmul_f32(cls_out, params.proj.to(dtype))
 
 
+def encode_image(params: ClipParams, cfg: ClipConfig, images: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """images (B, H, W, 3) normalized fp32 -> (B, output_dim) fp32: the
+    patch product taken in fp32 and rounded once to `dtype`, as
+    `encode_image_uint8`'s."""
+    x = _patchify(images, cfg.patch_size).to(dtype)
+    x = matmul_f32(x, params.patch_embed.to(dtype)).to(dtype)
+    return _trunk(params, cfg, x, dtype)
+
+
 def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
                        rgb_uint8: torch.Tensor,
                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -120,3 +153,91 @@ def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
     x = _patchify(rgb_uint8, ps).to(dtype)
     x = matmul_f32(x, w_folded, b_folded).to(dtype)
     return _trunk(params, cfg, x, dtype)
+
+
+# ---------------------------------------------------------------------------
+# converters (released layouts -> the JAX package's tree layout)
+# ---------------------------------------------------------------------------
+
+def _patch_matrix(conv: np.ndarray) -> np.ndarray:
+    """(width, 3, ps, ps) conv kernel -> (ps*ps*3, width) in `_patchify`'s
+    (ps, ps, 3) row-major order."""
+    return conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0])
+
+
+def convert_openai_clip(state_dict: Mapping, cfg: ClipConfig) -> dict:
+    """openai clip state_dict (`visual.*` keys, or the tower's own) -> the
+    CLIP tree; each block's packed in_proj splits into q/k/v."""
+    sd = {k[len("visual."):]: to_numpy(v) for k, v in state_dict.items()
+          if k.startswith("visual.")}
+    if not sd:  # already visual-only
+        sd = {k: to_numpy(v) for k, v in state_dict.items()}
+
+    def ln(key):
+        return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+    def lin(key):
+        return {"w": sd[f"{key}.weight"].T, "b": sd[f"{key}.bias"]}
+
+    blocks = []
+    for i in range(cfg.layers):
+        b = f"transformer.resblocks.{i}"
+        attn = split_in_proj(sd[f"{b}.attn.in_proj_weight"],
+                             sd[f"{b}.attn.in_proj_bias"])
+        attn["o"] = lin(f"{b}.attn.out_proj")
+        blocks.append({
+            "ln_1": ln(f"{b}.ln_1"),
+            "attn": attn,
+            "ln_2": ln(f"{b}.ln_2"),
+            "mlp_fc": lin(f"{b}.mlp.c_fc"),
+            "mlp_proj": lin(f"{b}.mlp.c_proj"),
+        })
+    return {
+        "patch_embed": _patch_matrix(sd["conv1.weight"]),
+        "class_embedding": sd["class_embedding"],
+        "positional_embedding": sd["positional_embedding"],
+        "ln_pre": ln("ln_pre"),
+        "blocks": stack_layers(blocks),
+        "ln_post": ln("ln_post"),
+        "proj": sd["proj"],
+    }
+
+
+def convert_hf_clip_vision(state_dict: Mapping, cfg: ClipConfig) -> dict:
+    """HF CLIPVisionModelWithProjection state_dict -> the CLIP tree."""
+    sd = {k: to_numpy(v) for k, v in state_dict.items()}
+    pre = "vision_model."
+
+    def lin(key):
+        return {"w": sd[f"{key}.weight"].T, "b": sd[f"{key}.bias"]}
+
+    def ln(key):
+        return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+    blocks = []
+    for i in range(cfg.layers):
+        b = f"{pre}encoder.layers.{i}"
+        blocks.append({
+            "ln_1": ln(f"{b}.layer_norm1"),
+            "attn": {
+                "q": lin(f"{b}.self_attn.q_proj"),
+                "k": lin(f"{b}.self_attn.k_proj"),
+                "v": lin(f"{b}.self_attn.v_proj"),
+                "o": lin(f"{b}.self_attn.out_proj"),
+            },
+            "ln_2": ln(f"{b}.layer_norm2"),
+            "mlp_fc": lin(f"{b}.mlp.fc1"),
+            "mlp_proj": lin(f"{b}.mlp.fc2"),
+        })
+    return {
+        "patch_embed": _patch_matrix(
+            sd[f"{pre}embeddings.patch_embedding.weight"]),
+        "class_embedding": sd[f"{pre}embeddings.class_embedding"],
+        "positional_embedding":
+            sd[f"{pre}embeddings.position_embedding.weight"],
+        # HF's attribute name is spelled so
+        "ln_pre": ln(f"{pre}pre_layrnorm"),
+        "blocks": stack_layers(blocks),
+        "ln_post": ln(f"{pre}post_layernorm"),
+        "proj": sd["visual_projection.weight"].T,
+    }

@@ -1,8 +1,29 @@
-"""Bridge from the JAX package's parameter tree to the port's modules.
+"""Released PyTorch checkpoints and JAX parameter trees -> the port's
+modules.
 
-`agent_params_from_jax` takes the JAX `AgentParams` as nested dicts (or
-the NamedTuple) of numpy arrays — no JAX object crosses over — and
-returns a loaded `Agent`:
+Two steps, with one tree format between them: nested dicts of numpy
+arrays laid out as the JAX package's parameter trees (dense `w` (in,
+out), conv kernels HWIO, a stack's layers on a leading axis, the depth
+trunk's blocks in a list).
+
+1. The released-checkpoint converters (counterparts of
+   `etpnav_tpu/models/convert.py`; CLIP's and the depth trunk's are in
+   `clip_vit.py` and `depth_resnet.py`) turn a PyTorch state dict in the
+   released ETPNav layouts into such a tree, equal leaf by leaf to the
+   JAX converter's:
+   - pretrain/fine-tune planner checkpoints with `module.` / `net.` /
+     `vln_bert.` / `bert.` prefixes (key surgery of vlnbert_init.py:21-30
+     and ss_trainer_ETP.py:226-236), stripped iteratively;
+   - the waypoint predictor (`check_cwp_bestdist_hfov90`, TRM_net.py
+     layout under `predictor.`);
+   - the fine-tune policy that owns the frozen encoders
+     (`{'state_dict': {'net.module.vln_bert.*', ...}}`);
+   - HF `BertModel` / `XLMRobertaModel` encoders (the goldens).
+   Linear weights go from torch (out, in) to the tree's (in, out).
+2. `load_jax_tree` copies a tree into a port module, and
+   `agent_params_from_jax` takes the JAX `AgentParams` as nested dicts
+   (or the NamedTuple) of numpy arrays — no JAX object crosses over —
+   and returns a loaded `Agent`:
 
 - dense `w` goes from (in, out) to PyTorch's (out, in);
 - convolution kernels go from HWIO to OIHW;
@@ -18,7 +39,7 @@ with no key, raises.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -26,6 +47,11 @@ import torch.nn as nn
 
 from etpnav_tpu_torch.config import ExperimentConfig
 from etpnav_tpu_torch.models.depth_resnet import Conv, GroupNorm
+from etpnav_tpu_torch.models.tree import (
+    split_in_proj,
+    stack_layers,
+    to_numpy,
+)
 from etpnav_tpu_torch.ops.basic import LayerNorm, Linear
 from etpnav_tpu_torch.training.agent import Agent, AgentParams
 
@@ -88,3 +114,224 @@ def agent_params_from_jax(tree: Any, cfg: ExperimentConfig, *,
     params = AgentParams(cfg)
     load_jax_tree(params, tree)
     return Agent(cfg, params, device=device)
+
+
+# ---------------------------------------------------------------------------
+# released PyTorch checkpoints -> trees
+# ---------------------------------------------------------------------------
+
+def strip_prefixes(state_dict: Mapping, prefixes=("module.", "net.",
+                                                  "vln_bert.", "bert.")
+                   ) -> Dict[str, np.ndarray]:
+    """Normalize checkpoint keys: iteratively strip known wrapper prefixes
+    (DDP 'module.', policy 'net.'/'vln_bert.', pretrain 'bert.')."""
+    out = {}
+    for k, v in state_dict.items():
+        changed = True
+        while changed:
+            changed = False
+            for p in prefixes:
+                if k.startswith(p):
+                    k = k[len(p):]
+                    changed = True
+        out[k] = to_numpy(v)
+    return out
+
+
+def _linear(sd, key):
+    return {"w": sd[f"{key}.weight"].T, "b": sd[f"{key}.bias"]}
+
+
+def _ln(sd, key):
+    return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+
+def _attn_block(sd, base, out_base):
+    """BertSelfAttention + BertSelfOutput -> an AttentionBlock tree."""
+    return {
+        "attn": {
+            "q": _linear(sd, f"{base}.query"),
+            "k": _linear(sd, f"{base}.key"),
+            "v": _linear(sd, f"{base}.value"),
+        },
+        "out": {
+            "dense": _linear(sd, f"{out_base}.dense"),
+            "ln": _ln(sd, f"{out_base}.LayerNorm"),
+        },
+    }
+
+
+def _ffn(sd, inter_key, out_key):
+    return {
+        "intermediate": _linear(sd, f"{inter_key}.dense"),
+        "output": {
+            "dense": _linear(sd, f"{out_key}.dense"),
+            "ln": _ln(sd, f"{out_key}.LayerNorm"),
+        },
+    }
+
+
+def _bert_layer(sd, base):
+    return {
+        "attention": _attn_block(sd, f"{base}.attention.self",
+                                 f"{base}.attention.output"),
+        "ffn": _ffn(sd, f"{base}.intermediate", f"{base}.output"),
+    }
+
+
+def _prenorm_layer(sd, base):
+    """nn.TransformerEncoderLayer(norm_first=True) -> a pre-norm layer
+    tree, the packed q/k/v split."""
+    attn = split_in_proj(sd[f"{base}.self_attn.in_proj_weight"],
+                         sd[f"{base}.self_attn.in_proj_bias"])
+    attn["o"] = _linear(sd, f"{base}.self_attn.out_proj")
+    return {
+        "attn": attn,
+        "norm1": _ln(sd, f"{base}.norm1"),
+        "norm2": _ln(sd, f"{base}.norm2"),
+        "linear1": _linear(sd, f"{base}.linear1"),
+        "linear2": _linear(sd, f"{base}.linear2"),
+    }
+
+
+def _embeddings(sd):
+    return {
+        "word_embeddings": sd["embeddings.word_embeddings.weight"],
+        "position_embeddings": sd["embeddings.position_embeddings.weight"],
+        "token_type_embeddings":
+            sd["embeddings.token_type_embeddings.weight"],
+        "ln": _ln(sd, "embeddings.LayerNorm"),
+    }
+
+
+def _x_layer(sd, base):
+    return {
+        "visual_attention": _attn_block(
+            sd, f"{base}.visual_attention.att",
+            f"{base}.visual_attention.output"),
+        "visn_self_att": _attn_block(sd, f"{base}.visn_self_att.self",
+                                     f"{base}.visn_self_att.output"),
+        "visn_ffn": _ffn(sd, f"{base}.visn_inter", f"{base}.visn_output"),
+    }
+
+
+def convert_planner(state_dict: Mapping, num_l_layers: int = 9,
+                    num_pano_layers: int = 2, num_x_layers: int = 4
+                    ) -> dict:
+    """ETPNav planner state_dict (GlocalTextPathNavCMT names,
+    vilmodel_cmt.py:663-750) -> the planner tree. Keys other than the
+    planner's (the pretrain heads) are ignored; `dep_linear` and
+    `sprel_linear` are converted when present."""
+    sd = strip_prefixes(state_dict)
+    ie = "img_embeddings"
+    params = {
+        "embeddings": _embeddings(sd),
+        "lang_encoder": stack_layers([
+            _bert_layer(sd, f"lang_encoder.layer.{i}")
+            for i in range(num_l_layers)]),
+        "img_embeddings": {
+            "img_linear": _linear(sd, f"{ie}.img_linear"),
+            "img_ln": _ln(sd, f"{ie}.img_layer_norm"),
+            "loc_linear": _linear(sd, f"{ie}.loc_linear"),
+            "loc_ln": _ln(sd, f"{ie}.loc_layer_norm"),
+            "nav_type_embedding": sd[f"{ie}.nav_type_embedding.weight"],
+            "ln": _ln(sd, f"{ie}.layer_norm"),
+            "pano_encoder": {
+                "layers": stack_layers([
+                    _prenorm_layer(sd, f"{ie}.pano_encoder.layers.{i}")
+                    for i in range(num_pano_layers)]),
+                "final_ln": _ln(sd, f"{ie}.pano_encoder.norm"),
+            },
+        },
+        "global_encoder": {
+            # nn.Sequential(Linear, LayerNorm): indices stand for names
+            "gmap_pos_embeddings": {
+                "dense": _linear(sd, "global_encoder.gmap_pos_embeddings.0"),
+                "ln": _ln(sd, "global_encoder.gmap_pos_embeddings.1"),
+            },
+            "gmap_step_embeddings":
+                sd["global_encoder.gmap_step_embeddings.weight"],
+            "encoder": stack_layers([
+                _x_layer(sd, f"global_encoder.encoder.x_layers.{i}")
+                for i in range(num_x_layers)]),
+        },
+        # nn.Sequential(Linear, ReLU, LayerNorm, Dropout, Linear)
+        "global_sap_head": {
+            "dense1": _linear(sd, "global_sap_head.net.0"),
+            "ln": _ln(sd, "global_sap_head.net.2"),
+            "dense2": _linear(sd, "global_sap_head.net.4"),
+        },
+    }
+    if f"{ie}.dep_linear.weight" in sd:
+        params["img_embeddings"]["dep_linear"] = _linear(
+            sd, f"{ie}.dep_linear")
+        params["img_embeddings"]["dep_ln"] = _ln(sd, f"{ie}.dep_layer_norm")
+    if "global_encoder.sprel_linear.weight" in sd:
+        params["global_encoder"]["sprel_linear"] = _linear(
+            sd, "global_encoder.sprel_linear")
+    return params
+
+
+def convert_waypoint(state_dict: Mapping, num_layers: int = 2) -> dict:
+    """Waypoint predictor checkpoint -> the waypoint tree (TRM_net.py
+    layout; the trainer strips 'predictor.' prefixes,
+    ss_trainer_ETP.py:196-202). `visual_fc_depth.1` and
+    `vis_classifier.{0,2}` are nn.Sequential indices."""
+    sd = strip_prefixes(state_dict, ("module.", "predictor."))
+    return {
+        "visual_fc_depth": _linear(sd, "visual_fc_depth.1"),
+        "waypoint_trm": stack_layers([
+            _bert_layer(sd, f"waypoint_TRM.bert.encoder.layer.{i}")
+            for i in range(num_layers)]),
+        "vis_classifier": {
+            "dense1": _linear(sd, "vis_classifier.0"),
+            "dense2": _linear(sd, "vis_classifier.2"),
+        },
+    }
+
+
+def convert_full_policy(state_dict: Mapping, planner_cfg=None,
+                        clip_cfg=None, depth_cfg=None) -> dict:
+    """Released *fine-tune* checkpoint (ss_trainer_ETP.py:74-83 layout:
+    {'state_dict': policy params with net./module. prefixes}) -> dict of
+    {'planner', 'clip', 'depth'} trees. The policy owns the frozen
+    encoders as submodules (Policy_ViewSelection_ETP.py:118-139):
+    net.depth_encoder.visual_encoder.*, net.rgb_encoder.model.visual.*,
+    net.vln_bert.*. The configs default to `r2r_config()`'s."""
+    from etpnav_tpu_torch.config import r2r_config
+    from etpnav_tpu_torch.models.clip_vit import convert_openai_clip
+    from etpnav_tpu_torch.models.depth_resnet import convert_ddppo_depth
+
+    if "state_dict" in state_dict:
+        state_dict = state_dict["state_dict"]
+    # iterative strip: DDP-wrapped policies save 'net.module.vln_bert.*'
+    # (ss_trainer_ETP.py:211-212 wraps policy.net in DDP)
+    flat = strip_prefixes(state_dict, ("module.", "net."))
+
+    def under(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+
+    planner_sd = under("vln_bert.")
+    depth_sd = under("depth_encoder.visual_encoder.")
+    clip_sd = under("rgb_encoder.model.")
+    pc = planner_cfg or r2r_config().planner
+    out = {"planner": convert_planner(planner_sd, pc.num_l_layers,
+                                      pc.num_pano_layers, pc.num_x_layers)}
+    if depth_sd:
+        out["depth"] = convert_ddppo_depth(
+            depth_sd, depth_cfg or r2r_config().depth)
+    if clip_sd:
+        out["clip"] = convert_openai_clip(
+            clip_sd, clip_cfg or r2r_config().clip)
+    return out
+
+
+def convert_hf_bert_encoder(state_dict: Mapping, num_layers: int) -> dict:
+    """HF transformers BertModel / XLMRobertaModel state_dict -> the
+    planner's `embeddings` and `lang_encoder` trees (the goldens)."""
+    sd = strip_prefixes(state_dict, ("bert.",))
+    return {"embeddings": _embeddings(sd),
+            "lang_encoder": stack_layers([
+                _bert_layer(sd, f"encoder.layer.{i}")
+                for i in range(num_layers)])}

@@ -10,17 +10,23 @@ means, which `F.group_norm` does not compute the same way. With
 `DepthEncoderConfig.use_fused_gn` every norm, with its ReLU and the
 bottleneck's residual add, is one K-GN launch (`ops/fused_groupnorm.py`):
 54 per call at R2R depth.
+
+`convert_ddppo_depth` takes the released DD-PPO trunk to the JAX
+package's tree layout (`models/convert.py`; kernels HWIO, which
+`load_jax_tree` turns back to OIHW: an exact round trip).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from etpnav_tpu_torch.config import DepthEncoderConfig
+from etpnav_tpu_torch.models.tree import to_numpy
 from etpnav_tpu_torch.ops.fused_groupnorm import group_norm_fused
 
 
@@ -158,3 +164,51 @@ def encode_depth(params: DepthParams, cfg: DepthEncoderConfig,
     x = conv2d(params.compression_conv, x, 1, 1)
     x = gn_relu(params.compression_gn, x, 1)
     return x.permute(0, 2, 3, 1).float()
+
+
+# ---------------------------------------------------------------------------
+# converter (reference ddppo key layout)
+# ---------------------------------------------------------------------------
+
+def convert_ddppo_depth(state_dict: Mapping, cfg: DepthEncoderConfig
+                        ) -> dict:
+    """Keys as produced by resnet_encoders.py:40-47 surgery:
+    backbone.conv1.weight, backbone.bn1.{weight,bias},
+    backbone.layer{1-4}.{i}.convs.{0,3,6}.weight (convs),
+    backbone.layer{1-4}.{i}.convs.{1,4,7}.{weight,bias} (group norms),
+    backbone.layer{1-4}.{i}.downsample.{0,1}.*, compression.{0,1}.*.
+    Torch conv OIHW -> HWIO."""
+    sd = {k: to_numpy(v) for k, v in state_dict.items()}
+
+    def conv(key):
+        return {"w": sd[f"{key}.weight"].transpose(2, 3, 1, 0)}
+
+    def gn(key):
+        return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+    params = {
+        "stem_conv": conv("backbone.conv1"),
+        "stem_gn": gn("backbone.bn1"),
+        "compression_conv": conv("compression.0"),
+        "compression_gn": gn("compression.1"),
+    }
+    for li in range(1, 5):
+        layer = []
+        bi = 0
+        while f"backbone.layer{li}.{bi}.convs.0.weight" in sd:
+            base = f"backbone.layer{li}.{bi}"
+            block = {
+                "conv1": conv(f"{base}.convs.0"),
+                "gn1": gn(f"{base}.convs.1"),
+                "conv2": conv(f"{base}.convs.3"),
+                "gn2": gn(f"{base}.convs.4"),
+                "conv3": conv(f"{base}.convs.6"),
+                "gn3": gn(f"{base}.convs.7"),
+            }
+            if f"{base}.downsample.0.weight" in sd:
+                block["down_conv"] = conv(f"{base}.downsample.0")
+                block["down_gn"] = gn(f"{base}.downsample.1")
+            layer.append(block)
+            bi += 1
+        params[f"layer{li}"] = layer
+    return params

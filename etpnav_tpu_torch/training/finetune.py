@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 import warnings
 from collections import defaultdict
 from typing import Dict, Optional
@@ -43,6 +42,7 @@ from etpnav_tpu_torch.training.agent import (
     init_agent_params,
 )
 from etpnav_tpu_torch.training.rollout import RolloutEngine, RolloutRecord
+from etpnav_tpu_torch.utils.logging import StepTimer, TensorboardLogger
 
 # optax.adamw's default decay; torch.optim.AdamW's default (1e-2) differs
 WEIGHT_DECAY = 1e-4
@@ -228,8 +228,10 @@ def bucket_record(rec: RolloutRecord, il) -> RolloutRecord:
     return slice_record(rec, T_b, G_b)
 
 
-def record_to_batch(rec: RolloutRecord, device="cpu") -> dict:
-    """The learn step's inputs as tensors on `device` (ids as int64)."""
+def record_to_batch(rec: RolloutRecord, device="cuda") -> dict:
+    """The learn step's inputs as tensors on `device` (ids as int64); the
+    GPU unless `device="cpu"` is passed."""
+    device = resolve_device(device)
     batch = {}
     for f in dataclasses.fields(rec):
         if f.name == "logits":
@@ -256,12 +258,13 @@ class FinetuneTrainer:
     """The train / eval / inference loops. Runs on the GPU unless
     `device="cpu"` is passed; with no GPU and no `device="cpu"` it
     raises. With IL.is_requeue it resumes from the newest checkpoint in
-    `ckpt_dir`."""
+    `ckpt_dir`. `tb_dir` takes tensorboard scalars (the loss each
+    iteration; phase times and the learn buckets every 50)."""
 
     def __init__(self, cfg: ExperimentConfig, envs, *,
                  params: Optional[AgentParams] = None,
                  ckpt_dir: str = "checkpoints", seed: int = 0,
-                 device="cuda"):
+                 tb_dir: Optional[str] = None, device="cuda"):
         self.cfg = cfg
         self.envs = envs
         self.ckpt_dir = ckpt_dir
@@ -280,6 +283,8 @@ class FinetuneTrainer:
             device=self.device).manual_seed(seed + 1)
         self.iteration = 0
         self.logs = defaultdict(list)
+        self.timer = StepTimer()
+        self.writer = TensorboardLogger(tb_dir)
         # (T, G) learn-bucket usage histogram
         self.bucket_counts: Dict[tuple, int] = {}
         if cfg.il.is_requeue:
@@ -308,23 +313,31 @@ class FinetuneTrainer:
         for _ in range(iters):
             ratio = il.sample_ratio ** (
                 self.iteration // il.decay_interval + 1)
-            t0 = time.perf_counter()
-            rec = self.engine.run("train", sample_ratio=ratio,
-                                  gt_paths=gt_paths)
-            t1 = time.perf_counter()
-            brec = bucket_record(rec, il)
-            self.last_bucket = (brec.step_valid.shape[1],
-                                brec.gmap_mask.shape[2])
-            self.bucket_counts[self.last_bucket] = \
-                self.bucket_counts.get(self.last_bucket, 0) + 1
-            loss = learn_step(self.params.planner, self.optimizer, self.cfg,
-                              self.batch(brec), self.generator)
-            loss = float(loss)          # the learn phase ends on the device
-            t2 = time.perf_counter()
+            with self.timer.phase("rollout"):
+                rec = self.engine.run("train", sample_ratio=ratio,
+                                      gt_paths=gt_paths)
+            with self.timer.phase("learn"):
+                brec = bucket_record(rec, il)
+                self.last_bucket = (brec.step_valid.shape[1],
+                                    brec.gmap_mask.shape[2])
+                self.bucket_counts[self.last_bucket] = \
+                    self.bucket_counts.get(self.last_bucket, 0) + 1
+                loss = learn_step(self.params.planner, self.optimizer,
+                                  self.cfg, self.batch(brec), self.generator)
+                # the learn phase ends on the device: read it inside
+                loss = float(loss)
             self.iteration += 1
             self.logs["IL_loss"].append(loss)
-            self.logs["rollout_s"].append(t1 - t0)
-            self.logs["learn_s"].append(t2 - t1)
+            self.logs["rollout_s"].append(self.timer.last("rollout"))
+            self.logs["learn_s"].append(self.timer.last("learn"))
+            self.writer.add_scalar("loss/IL_loss", loss, self.iteration)
+            if self.iteration % 50 == 0:
+                self.writer.add_scalars(
+                    {f"time/{k}": v for k, v in self.timer.means().items()},
+                    self.iteration)
+                self.writer.add_scalars(
+                    {f"buckets/T{t}_G{g}": n for (t, g), n
+                     in self.bucket_counts.items()}, self.iteration)
             if save_every and self.iteration % save_every == 0:
                 self.save_checkpoint(os.path.join(
                     self.ckpt_dir, f"ckpt_iter{self.iteration}.pt"))
@@ -350,8 +363,11 @@ class FinetuneTrainer:
         return stats
 
     def inference(self, episode_count: int, predictions_file: str,
-                  fmt: str = "r2r", sample: bool = False) -> dict:
-        """Leaderboard submission writer (ss_trainer_ETP.py:643-756)."""
+                  fmt: str = "r2r", sample: Optional[bool] = None) -> dict:
+        """Leaderboard submission writer (ss_trainer_ETP.py:643-756).
+        sample defaults to cfg.inference.sample (INFERENCE.SAMPLE)."""
+        if sample is None:
+            sample = self.cfg.inference.sample
         path_eps: dict = {}
         guard = stalled = 0
         while len(path_eps) < episode_count and guard < 10 * episode_count:
@@ -384,6 +400,24 @@ class FinetuneTrainer:
         return path_eps
 
     # ------------------------------------------------------------- ckpts
+
+    def load_pretrained_planner(self, path: str):
+        """MODEL.pretrained_path: a released PyTorch pretrain (or
+        fine-tune) checkpoint, converted (vlnbert_init.py:21-30 key
+        surgery) and loaded into the planner in place. The optimizer
+        starts fresh, as the reference's fine-tune stage does."""
+        from etpnav_tpu_torch.convert_cli import load_torch_state_dict
+        from etpnav_tpu_torch.models.convert import (
+            convert_planner,
+            load_jax_tree,
+        )
+        sd = load_torch_state_dict(path, "planner")
+        sd = sd.get("model", sd)
+        p = self.cfg.planner
+        load_jax_tree(self.params.planner, convert_planner(
+            sd, p.num_l_layers, p.num_pano_layers, p.num_x_layers),
+            "planner")
+        self.optimizer = make_il_optimizer(self.cfg, self.params.planner)
 
     def save_checkpoint(self, path: str):
         checkpoints.save_checkpoint(path, {

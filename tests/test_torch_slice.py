@@ -216,7 +216,7 @@ def _port_files():
 def test_port_imports_no_jax():
     """No `import jax...` / `import etpnav_tpu...` (the JAX package) in
     the port or chip_smoke.py, and importing the whole port in a fresh
-    process loads neither."""
+    process loads neither, nor PyYAML or transformers."""
     bad = []
     files = _port_files()
     assert len(files) > 20
@@ -233,7 +233,16 @@ def test_port_imports_no_jax():
             "etpnav_tpu_torch/ops/fused_attention.py",
             "etpnav_tpu_torch/tools/__init__.py",
             "etpnav_tpu_torch/tools/exp_attn_layout.py",
-            "etpnav_tpu_torch/tools/exp_attn_pack.py"} <= names
+            "etpnav_tpu_torch/tools/exp_attn_pack.py",
+            "etpnav_tpu_torch/config_yaml.py",
+            "etpnav_tpu_torch/convert_cli.py",
+            "etpnav_tpu_torch/run.py",
+            "etpnav_tpu_torch/serving_http.py",
+            "etpnav_tpu_torch/data/episodes.py",
+            "etpnav_tpu_torch/data/tokenization.py",
+            "etpnav_tpu_torch/models/tree.py",
+            "etpnav_tpu_torch/training/eval_loop.py",
+            "etpnav_tpu_torch/utils/logging.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -255,7 +264,11 @@ def test_port_imports_no_jax():
             + "import chip_smoke\n"
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'etpnav_tpu')]\n"
-              "assert not bad, bad\nprint('clean', len(sys.modules))\n")
+              "assert not bad, bad\n"
+              # the runner and the tokenizer import these lazily
+              "lazy = [m for m in ('yaml', 'transformers') "
+              "if m in sys.modules]\n"
+              "assert not lazy, lazy\nprint('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -287,7 +287,7 @@ def loss_and_grads(slice_pair):
     planner = _port_planner(cfg, jp)
     batch = finetune.record_to_batch(RolloutRecord(**{
         f.name: getattr(jrec, f.name)
-        for f in dataclasses.fields(RolloutRecord)}))
+        for f in dataclasses.fields(RolloutRecord)}), device="cpu")
     counts = (fa.attention_plain_calls.value,
               fa.attention_bwd_plain_calls.value)
     loss = finetune.compute_il_loss(planner, cfg, batch)
@@ -380,7 +380,8 @@ def test_replay_reproduces_rollout_logits(slice_pair, bucketed):
         rec = cut
     with torch.no_grad():
         logits = finetune.replay_logits(
-            tr.params.planner, cfg, finetune.record_to_batch(rec),
+            tr.params.planner, cfg,
+            finetune.record_to_batch(rec, device="cpu"),
             train=False).numpy()
     checked = 0
     for b, t in zip(*np.nonzero(rec.step_valid)):
