@@ -89,6 +89,23 @@ Phases, each reported on its own lines:
      and runs inference (fused configuration: K-GN, K-PRENORM) on
      GeometricNavEnv episodes from its checkpoint, then the
      checkpoint-folder eval loop;
+  10. pretraining at r2r_config() width (batch 32, T = 8, 12 views + 5
+     candidates, 48 graph slots), each stage with every count at 0
+     before it and read after, exact launch counts (19 K-ATT and 19
+     K-ATT-BWD per step of any task) and no plain call: `run_config(
+     trainer="Pretrain", run_type="train")` takes 8 mlm + sap steps at
+     1 : 1, validating and saving model_step_N every 4; again with
+     PRETRAIN.resume, 4 steps more; a trainer with all four tasks (3
+     object tokens, image_prob_size 1000) takes one mrc and one og step
+     and validates; `run_config(run_type="train")` with
+     MODEL.pretrained_path at the last checkpoint warm-starts the
+     fine-tune planner (word embeddings and SAP head equal to the
+     checkpoint's) and takes one IL iteration. Then each task's step
+     p50, the peak memory and one profiled step per task; K-ATT (dropout
+     0.1, lse) and K-ATT-BWD (dropout 0.1) against their plain versions
+     at every pretraining attention shape, with device times beside the
+     bound and SDPA's; K-ATT-BWD's key limit at every pretraining shape
+     for R2R and RxR;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -2278,6 +2295,487 @@ def runner_phase(card: str, cfg, host_params, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: pretraining and the warm start into fine-tuning
+# ---------------------------------------------------------------------------
+
+# steps of the runner's first pretraining run (mlm + sap at 1 : 1, with
+# validation and a checkpoint every PRETRAIN_VALID), and of its resumed run
+PRETRAIN_STEPS = 8
+PRETRAIN_RESUMED = 4
+PRETRAIN_VALID = 4
+# object tokens per step of the MRC / OG configuration
+PRETRAIN_OBJS = 3
+# timed steps per task (after one untimed)
+PRETRAIN_TIMED = 5
+
+
+def pretrain_attentions(p) -> int:
+    """K-ATT launches of one forward of any pretraining task, and K-ATT-BWD
+    launches of its backward, as the code runs them: the text layers, the
+    pano layers (over B*T panoramas for MLM and SAP, the final step's for
+    MRC and OG), then two per cross-modal layer (graph into text + graph
+    self for SAP; text into graph + text self for MLM; local into text +
+    local self for MRC and OG)."""
+    return p.num_l_layers + p.num_pano_layers + 2 * p.num_x_layers
+
+
+@contextlib.contextmanager
+def pretrain_calls():
+    """Counts `PretrainTrainer.train_step` calls by task and the forwards
+    of `validate` by task, for every trainer (the runner builds its own),
+    by wrapping the class's methods; the trainers built go in a list."""
+    from etpnav_tpu_torch.training.pretrain import PretrainTrainer
+    steps, val = collections.Counter(), collections.Counter()
+    trainers = []
+    saved = {a: PretrainTrainer.__dict__[a]
+             for a in ("__init__", "train_step", "validate")}
+
+    def init(self, *a, **kw):
+        saved["__init__"](self, *a, **kw)
+        trainers.append(self)
+
+    def train_step(self, task, batch):
+        steps[task] += 1
+        return saved["train_step"](self, task, batch)
+
+    def validate(self, n_batches=4):
+        tasks = self.cfg.pretrain.tasks
+        for t in ("mlm", "sap", "mrc", "og"):
+            if t in ("mlm", "sap") or t in tasks:
+                val[t] += n_batches
+        return saved["validate"](self, n_batches)
+
+    PretrainTrainer.__init__ = init
+    PretrainTrainer.train_step = train_step
+    PretrainTrainer.validate = validate
+    try:
+        yield steps, val, trainers
+    finally:
+        for a, fn in saved.items():
+            setattr(PretrainTrainer, a, fn)
+
+
+def pretrain_counts(name: str, p, counters, steps, val) -> dict:
+    """The launch counts since the counters' reset: pretrain_attentions
+    K-ATT per forward (training steps and validation batches) and
+    K-ATT-BWD per training step; every other counter 0."""
+    n = pretrain_attentions(p)
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["attention_fwd"] = n * (sum(steps.values()) + sum(val.values()))
+    want["attention_bwd"] = n * sum(steps.values())
+    if counts != want or not want["attention_bwd"]:
+        raise AssertionError(f"pretrain {name}: launches {counts} != {want} "
+                             f"for steps {dict(steps)}, validation "
+                             f"{dict(val)}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def time_pretrain_task(card: str, tr, task: str, batch_size: int) -> dict:
+    """The train step p50 of `task` on one sampled batch (host clock
+    around a synchronised step), the host's batch sampling and copy time,
+    and the peak memory of the timed steps."""
+    t0 = time.perf_counter()
+    host = tr.sampler.sample_batch(batch_size, task)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = tr._put(host)
+    sync()
+    put_ms = (time.perf_counter() - t0) * 1e3
+    float(tr.train_step(task, batch))
+    sync()
+    reset_peak()
+    ms = []
+    for _ in range(PRETRAIN_TIMED):
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(task, batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(loss):
+        raise AssertionError(f"pretrain {task}: loss {loss}")
+    res = {"p50_ms": statistics.median(ms), "min_ms": min(ms),
+           "n": len(ms), "sample_ms": sample_ms, "put_ms": put_ms,
+           "peak_gib": peak_gib(), "loss": loss}
+    log(f"pretrain step {task}: {json.dumps(res)} [{card}]")
+    return res
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def reset_peak() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def free_cache() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def peak_gib() -> float:
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.cuda.is_available() else 0.0)
+
+
+def profile_pretrain_step(card: str, tr, task: str, batch) -> dict:
+    """Device time of one profiled training step of `task`: the device's
+    busy share of the step's wall time, the longest kernels, and the
+    attention kernels' launches and device time."""
+    from torch.profiler import ProfilerActivity, profile
+    float(tr.train_step(task, batch))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(tr.train_step(task, batch))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not e.key.startswith("Optimizer.")]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+    attn = {}
+    for e in ev:
+        if "attention_" in e.key:
+            k = e.key[e.key.find("attention_"):].split("(")[0].split("<")[0]
+            a = attn.setdefault(k, [0.0, 0])
+            a[0] += e.self_device_time_total / 1e3
+            a[1] += e.count
+    log(f"profile pretrain step {task}: wall {wall_ms:.2f} ms (profiled), "
+        f"device busy {dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in ev)} device ops [{card}]")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+    log(f"  attention kernels of the step (ms, launches): "
+        f"{json.dumps(attn)}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall_ms,
+            "device_ops": sum(e.count for e in ev),
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in top[:6]], "attention": attn}
+
+
+def pretrain_phase(card: str, base, counters, tmp: str,
+                   device: str = "cuda", profile: bool = True) -> dict:
+    """Phase 10 at `base`'s width (r2r_config on the card), each stage with
+    every count at 0 before it and read after, exact launch counts and no
+    plain call:
+    (a) `run_config(trainer="Pretrain", run_type="train")`: mlm + sap at
+        1 : 1 for PRETRAIN_STEPS steps, validating and saving
+        model_step_N every PRETRAIN_VALID;
+    (b) the same with PRETRAIN.resume: resumes at the newest checkpoint
+        and takes PRETRAIN_RESUMED steps more;
+    (c) a trainer with all four tasks, PRETRAIN_OBJS object tokens and
+        image_prob_size 1000 takes one mrc and one og step and validates;
+    (d) `run_config(run_type="train")` of the fine-tune trainer with
+        MODEL.pretrained_path at (b)'s last checkpoint: the warm start
+        (word embeddings equal to the checkpoint's) and one IL iteration;
+    then each task's step p50, the peak memory and one profiled step."""
+    from etpnav_tpu_torch.run import run_config
+    from etpnav_tpu_torch.training import checkpoints
+    from etpnav_tpu_torch.training.finetune import FinetuneTrainer
+    from etpnav_tpu_torch.training.pretrain import (
+        PretrainTrainer,
+        pretrain_shapes,
+    )
+    p = base.planner
+    ck = os.path.join(tmp, "pretrain")
+    bs = base.pretrain.batch_size
+    cfg = dataclasses.replace(
+        base, checkpoint_folder=ck, pretrain=dataclasses.replace(
+            base.pretrain, num_train_steps=PRETRAIN_STEPS,
+            valid_steps=PRETRAIN_VALID, warmup_steps=PRETRAIN_STEPS,
+            tasks=("mlm", "sap"), task_ratios=(1.0, 1.0)))
+    res = {"shapes": dataclasses.asdict(pretrain_shapes(cfg)),
+           "batch_size": bs}
+    # (a) and (b)
+    stages = (("train", cfg),
+              ("resume", dataclasses.replace(cfg, pretrain=dataclasses.replace(
+                  cfg.pretrain, resume=True,
+                  num_train_steps=PRETRAIN_STEPS + PRETRAIN_RESUMED))))
+    for name, c in stages:
+        for cnt in counters.values():
+            cnt.reset()
+        t0 = time.perf_counter()
+        with pretrain_calls() as (steps, val, trainers):
+            logs = run_config(c, trainer="Pretrain", run_type="train",
+                              device=device)
+            sync()
+        launches = pretrain_counts(name, p, counters, steps, val)
+        tr = trainers[-1]
+        res[name] = {"seconds": time.perf_counter() - t0, "logs": logs,
+                     "steps": dict(steps), "validation": dict(val),
+                     "launches": launches, "step": tr.step}
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"pretrain {name}: {logs}")
+        log(f"pretrain runner {name}: {json.dumps(res[name])} [{card}]")
+    want_files = [f"model_step_{s}.pt" for s in range(
+        PRETRAIN_VALID, PRETRAIN_STEPS + PRETRAIN_RESUMED + 1,
+        PRETRAIN_VALID)]
+    got_files = sorted(os.listdir(ck), key=lambda f: int(f[11:-3]))
+    if (got_files != want_files
+            or res["resume"]["step"] != PRETRAIN_STEPS + PRETRAIN_RESUMED
+            or sum(res["resume"]["steps"].values()) != PRETRAIN_RESUMED):
+        raise AssertionError(f"pretrain resume: files {got_files}, "
+                             f"{res['resume']}")
+    # the resumed trainer's step p50 for mlm and sap, then one profiled
+    # step each
+    times, prof = {}, {}
+    for task in ("mlm", "sap"):
+        times[task] = time_pretrain_task(card, tr, task, bs)
+        if profile:
+            prof[task] = profile_pretrain_step(
+                card, tr, task, tr._put(tr.sampler.sample_batch(bs, task)))
+    del tr, trainers
+    free_cache()
+
+    # (c) mrc and og
+    cfg4 = dataclasses.replace(
+        cfg, planner=dataclasses.replace(p, num_nav_types=3),
+        pretrain=dataclasses.replace(
+            cfg.pretrain, tasks=("mlm", "sap", "mrc", "og"),
+            task_ratios=(1.0, 1.0, 1.0, 1.0), image_prob_size=1000,
+            num_objs=PRETRAIN_OBJS))
+    for cnt in counters.values():
+        cnt.reset()
+    t0 = time.perf_counter()
+    with pretrain_calls() as (steps, val, _):
+        tr4 = PretrainTrainer(cfg4, pretrain_shapes(cfg4), seed=cfg4.seed,
+                              device=device)
+        losses = {t: float(tr4.train_step(t, tr4._put(
+            tr4.sampler.sample_batch(bs, t)))) for t in ("mrc", "og")}
+        acc = tr4.validate(n_batches=1)
+        sync()
+    launches = pretrain_counts("mrc/og", p, counters, steps, val)
+    if not all(np.isfinite(v) for v in [*losses.values(), *acc.values()]):
+        raise AssertionError(f"pretrain mrc/og: {losses} {acc}")
+    res["mrc_og"] = {"seconds": time.perf_counter() - t0, "loss": losses,
+                     "validation": acc, "launches": launches}
+    log(f"pretrain mrc/og: {json.dumps(res['mrc_og'])} [{card}]")
+    for task in ("mrc", "og"):
+        times[task] = time_pretrain_task(card, tr4, task, bs)
+        if profile:
+            prof[task] = profile_pretrain_step(
+                card, tr4, task, tr4._put(tr4.sampler.sample_batch(bs, task)))
+    del tr4
+    free_cache()
+
+    # (d) the warm start and one IL iteration through the runner
+    last = os.path.join(ck, want_files[-1])
+    pre = checkpoints.load_checkpoint(last, map_location="cpu")["params"]
+    ft = dataclasses.replace(
+        base, pretrained_path=last,
+        il=dataclasses.replace(base.il, iters=1, log_every=1000))
+    loaded = {}
+    orig = FinetuneTrainer.load_pretrained
+
+    def load_pretrained(self, path):
+        orig(self, path)
+        loaded["word"] = self.params.planner.embeddings.word_embeddings \
+            .detach().cpu().clone()
+        loaded["sap"] = self.params.planner.global_sap_head.dense2.weight \
+            .detach().cpu().clone()
+
+    for cnt in counters.values():
+        cnt.reset()
+    t0 = time.perf_counter()
+    FinetuneTrainer.load_pretrained = load_pretrained
+    try:
+        with program_calls() as calls:
+            out = run_config(ft, run_type="train", device=device,
+                             ckpt_dir=os.path.join(tmp, "finetune"))
+            sync()
+    finally:
+        FinetuneTrainer.load_pretrained = orig
+    launches = runner_counts("warm start", counters, calls,
+                             PER_CALL["default"], 1)
+    if not (torch.equal(loaded.get("word"),
+                        pre["embeddings.word_embeddings"])
+            and torch.equal(loaded["sap"],
+                            pre["global_sap_head.dense2.weight"])
+            and np.isfinite(out["IL_loss"])):
+        raise AssertionError(f"warm start: the fine-tune planner does not "
+                             f"start from {last}, or loss {out}")
+    res["warm_start"] = {"seconds": time.perf_counter() - t0,
+                         "IL_loss": out["IL_loss"], "calls": dict(calls),
+                         "launches": launches}
+    log(f"pretrain warm start + 1 IL iteration: "
+        f"{json.dumps(res['warm_start'])}; word embeddings and SAP head "
+        f"equal to {os.path.basename(last)} [{card}]")
+    res["step"] = times
+    res["profile"] = prof
+    total = collections.Counter()
+    for k in ("train", "resume", "mrc_og", "warm_start"):
+        total.update(res[k]["launches"])
+    res["launches"] = dict(total)
+    res["per_step_attentions"] = pretrain_attentions(p)
+    return res
+
+
+def pretrain_attention_cases(dev, cfg, G: int = 48, T: int = 8):
+    """(name, dtype, q, k, v, bias, dbias) of every attention a pretraining
+    step runs at `cfg`'s width (B = batch_size, T steps, 17 pano tokens,
+    G = 48 graph slots, the text at max_txt_len; MRC / OG with
+    PRETRAIN_OBJS object tokens more): bf16 where the stack runs bf16, fp32
+    for MLM's text-into-graph layers, as the model runs them."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, L = cfg.pretrain.batch_size, cfg.planner.max_txt_len
+    P = 17
+    H, hd = cfg.planner.num_heads, cfg.planner.head_dim
+
+    def natural(n, Lx, dtype):
+        x = torch.randn(n, Lx, H * hd, generator=g, device=dev) * 0.5
+        return x.to(dtype).view(n, Lx, H, hd).transpose(1, 2)
+
+    def pad_bias(n, Lx, keep):
+        mask = torch.arange(Lx, device=dev)[None] < keep
+        return ((~mask).float() * -10000.0).expand(n, Lx)[:, None, None, :]
+
+    sprel = torch.rand(B, G, G, generator=g, device=dev) * -2.0
+    graph_bias = (pad_bias(B, G, G * 2 // 3) + sprel[:, None]).contiguous()
+    bf, f32 = torch.bfloat16, torch.float32
+    Po = P + PRETRAIN_OBJS
+    specs = [("text", bf, B, L, L, pad_bias(B, L, L // 2), False),
+             ("pano", bf, B * T, P, P, pad_bias(B * T, P, 13), False),
+             ("sap_cross", bf, B, G, L, pad_bias(B, L, L // 2), False),
+             ("sap_graph", bf, B, G, G, graph_bias, True),
+             ("mlm_l2v_cross", f32, B, L, G, pad_bias(B, G, G * 2 // 3),
+              False),
+             ("mlm_lang_self", f32, B, L, L, pad_bias(B, L, L // 2), False),
+             ("local_pano", bf, B, Po, Po, pad_bias(B, Po, 16), False),
+             ("local_cross", bf, B, Po + 1, L, pad_bias(B, L, L // 2),
+              False),
+             ("local_self", bf, B, Po + 1, Po + 1, pad_bias(B, Po + 1, 17),
+              False)]
+    return [(name, dt, natural(n, Lq, dt), natural(n, Lk, dt),
+             natural(n, Lk, dt), bias, db)
+            for name, dt, n, Lq, Lk, bias, db in specs]
+
+
+def check_pretrain_attention(card: str, cfg) -> dict:
+    """K-ATT with dropout 0.1 and the row lse, and K-ATT-BWD with dropout
+    0.1, against their plain versions at every attention shape of a
+    pretraining step; each kernel's device time beside the card's bound
+    and SDPA's device time for the same work (forward with dropout;
+    forward + backward beside K-ATT + K-ATT-BWD through AttentionFn)."""
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.ops.fused_attention import (
+        AttentionFn,
+        attention_bwd,
+        attention_bwd_plain,
+        attention_fwd,
+        attention_plain,
+        draw_seed_offset,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = {}
+    scale = 0.125
+    for name, dtype, q, k, v, bias, dbias in pretrain_attention_cases(
+            dev, cfg):
+        so = draw_seed_offset(gen, dev)
+        out, lse = attention_fwd(q, k, v, bias, scale, 0.1, so,
+                                 return_lse=True)
+        want, _ = attention_plain(q, k, v, bias, scale, 0.1, so,
+                                  return_lse=True)
+        err = (out.float() - want.float()).abs().max().item()
+        if not err <= TOL[dtype]:
+            raise AssertionError(f"K-ATT pretrain {name}: err {err}")
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        args = (q, k, v, bias, out, lse, dout, scale, 0.1, so, dbias)
+        got = attention_bwd(*args)
+        ref = attention_bwd_plain(*args)
+        berrs = {}
+        for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            if b is None:
+                continue
+            e = (a.float() - b.float()).abs().max().item()
+            if not e <= bwd_tol(b, dtype):
+                raise AssertionError(f"K-ATT-BWD pretrain {name} {gname}: "
+                                     f"err {e}")
+            berrs[gname] = e
+        fwd_k = kernel_ms(lambda: attention_fwd(q, k, v, bias, scale, 0.1,
+                                                so, return_lse=True))
+        mask = bias.to(dtype)
+        sdpa_fwd_k = kernel_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=0.1, scale=scale))
+        bwd_k = kernel_ms(lambda: attention_bwd(*args))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        bg = bias.detach().clone().requires_grad_(dbias)
+
+        def ours():
+            AttentionFn.apply(qg, kg, vg, bg, scale, 0.1, so).backward(dout)
+
+        maskg = bg.expand(q.shape[0], 1, q.shape[2], k.shape[2])
+
+        def sdpa():
+            F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=maskg.to(dtype), dropout_p=0.1,
+                scale=scale).backward(dout)
+
+        pair_k = kernel_ms(ours, iters=10)
+        sdpa_pair_k = kernel_ms(sdpa, iters=10)
+        nb, fl = attention_work(q, k, v, bias)
+        f_bound, f_by = bound_ms(nb + 4 * lse.numel(), fl, dtype)
+        nb, fl = attention_bwd_work(q, k, bias, True, dbias)
+        b_bound, b_by = bound_ms(nb, fl, dtype)
+        key = f"{name}/{str(dtype).split('.')[-1]}"
+        rows[key] = {"q": list(q.shape), "k": list(k.shape),
+                     "fwd_err": err, "bwd_errs": berrs,
+                     "fwd_kernel_ms": fwd_k, "fwd_bound_ms": f_bound,
+                     "fwd_bound_by": f_by, "sdpa_fwd_kernel_ms": sdpa_fwd_k,
+                     "bwd_kernel_ms": bwd_k, "bwd_bound_ms": b_bound,
+                     "bwd_bound_by": b_by, "fwd_bwd_kernel_ms": pair_k,
+                     "sdpa_fwd_bwd_kernel_ms": sdpa_pair_k}
+        log(f"pretrain attention {key:24s} q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} K-ATT(p0.1, lse) {fwd_k:.4f} ms (bound "
+            f"{f_bound:.4f}, {f_by}; sdpa {sdpa_fwd_k:.4f}) K-ATT-BWD "
+            f"{bwd_k:.4f} ms (bound {b_bound:.4f}, {b_by}) fwd+bwd "
+            f"{pair_k:.4f} ms (sdpa {sdpa_pair_k:.4f}); errs fwd {err:.3g} "
+            f"bwd {json.dumps(berrs)} [{card}]")
+    return rows
+
+
+def check_bwd_key_limits(card: str, cfgs: dict) -> dict:
+    """K-ATT-BWD's key limit (`etp_attention_bwd_max_lk`) at every
+    (dtype, Lq, Lk, d(bias)) of a pretraining step, for each config
+    (`cfgs`: name -> ExperimentConfig). Raises where an R2R shape is over
+    its limit (the wrapper would raise in training); reports the rest."""
+    from etpnav_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("attention_bwd")
+    out = {}
+    for cname, c in cfgs.items():
+        L, G, P = c.planner.max_txt_len, 48, 17
+        bf, f32 = 1, 0
+        shapes = [("text", bf, L, L, 0), ("pano", bf, P, P, 0),
+                  ("sap_cross", bf, G, L, 0), ("sap_graph", bf, G, G, 1),
+                  ("mlm_l2v_cross", f32, L, G, 0),
+                  ("mlm_lang_self", f32, L, L, 0),
+                  ("local_cross", bf, P + PRETRAIN_OBJS + 1, L, 0),
+                  ("local_self", bf, P + PRETRAIN_OBJS + 1,
+                   P + PRETRAIN_OBJS + 1, 0)]
+        rows = {}
+        for name, dt, lq, lk, db in shapes:
+            lim = lib.etp_attention_bwd_max_lk(dt, lq, db)
+            rows[name] = {"Lq": lq, "Lk": lk, "dtype": "bf16" if dt else
+                          "fp32", "dbias": bool(db), "max_lk": lim,
+                          "fits": lk <= lim}
+        out[cname] = rows
+        bad = [n for n, r in rows.items() if not r["fits"]]
+        log(f"K-ATT-BWD key limits, pretraining at {cname}: "
+            f"{json.dumps(rows)}; over the limit: {bad or 'none'} [{card}]")
+        if cname == "r2r" and bad:
+            raise AssertionError(f"K-ATT-BWD: R2R pretraining shapes {bad} "
+                                 "exceed the kernel's key limit")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 # the design of the bf16 attention kernels
 TC_DESIGN = "tensor cores (mma.sync)"
@@ -2348,7 +2846,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
-    from etpnav_tpu_torch.config import r2r_config
+    from etpnav_tpu_torch.config import r2r_config, rxr_config
     from etpnav_tpu_torch.ops import (
         cuda_build,
         fused_attention,
@@ -2474,6 +2972,14 @@ def main() -> int:
     runner = runner_phase(card, cfg, host_params.cpu(), counters)
     run_launches = runner["launches"]
     log(f"phase 9 done at {time.perf_counter() - T0:.0f} s")
+    # phase 10
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="etpnav_pretrain_") as tmp:
+        pt_res = pretrain_phase(card, cfg, counters, tmp)
+    torch.cuda.empty_cache()
+    pt_rows = check_pretrain_attention(card, cfg)
+    check_bwd_key_limits(card, {"r2r": cfg, "rxr": rxr_config()})
+    log(f"phase 10 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -2489,6 +2995,7 @@ def main() -> int:
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_fwd", 0),
+         "launches_pretrain": pt_res["launches"].get("attention_fwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
@@ -2547,6 +3054,7 @@ def main() -> int:
          "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"]},
         {"name": "attention_bwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_bwd", 0),
+         "launches_pretrain": pt_res["launches"].get("attention_bwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -2629,6 +3137,16 @@ def main() -> int:
             f"p50 {r['http_step_p50_ms']:.2f} ms, in-process "
             f"{r['in_process_step_p50_ms']:.2f} ms over {r['steps']} steps "
             f"of {r['sessions']} sessions, actions equal [{card}]")
+    st = pt_res["step"]
+    log(f"pretrain (R2R width, batch {pt_res['batch_size']}): step p50 "
+        + ", ".join(f"{t} {st[t]['p50_ms']:.2f} ms" for t in st)
+        + f"; peak {max(r['peak_gib'] for r in st.values()):.2f} GiB; "
+        f"device busy " + ", ".join(
+            f"{t} {100 * r['busy_share']:.1f}%"
+            for t, r in pt_res["profile"].items())
+        + f"; {pt_res['per_step_attentions']} K-ATT + "
+        f"{pt_res['per_step_attentions']} K-ATT-BWD per step; attention "
+        f"rows {len(pt_rows)} [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

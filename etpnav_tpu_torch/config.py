@@ -6,8 +6,8 @@ configuration reads the same in both packages. Switches that only the
 JAX package can act on (rematerialisation `remat`/`remat_nav`, the bf16
 attention-probs chain `attn_probs_bf16`, the dropout PRNG choices
 `rng_impl`/`dropout_bits8`, `agg_dense_device`) and the sections of the
-pretraining, DAgger and device-mesh tooling are not here: each comes
-back with the slice that reads it (`config_yaml.py` refuses them). Several comments
+DAgger and device-mesh tooling are not here: each comes back with the
+slice that reads it (`config_yaml.py` refuses them). Several comments
 below record measurements taken on a TPU for the JAX package; they
 explain the defaults there and say nothing about the port's speed on a
 GPU.
@@ -64,6 +64,9 @@ class PlannerConfig:
     graph_sprels: bool = True
     num_nav_types: int = 2
 
+    # static shape buckets: the instruction length (r2r 80, rxr 200;
+    # the pretraining sampler pads to it) and the graph length
+    max_txt_len: int = 80
     max_gmap_len: int = 64       # [stop] + nodes + ghosts, bucketed
     # serving graph-length buckets for the navigation program: each step
     # runs at the smallest bucket that fits the largest live graph.
@@ -193,6 +196,39 @@ class ILConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """Proxy-task pretraining (pretrain_src/run_pt/
+    r2r_pretrain_habitat.json), the JAX package's defaults."""
+
+    num_train_steps: int = 100_000
+    warmup_steps: int = 10_000
+    learning_rate: float = 5e-5
+    batch_size: int = 32
+    grad_norm: float = 5.0
+    weight_decay: float = 0.01
+    mlm_prob: float = 0.15
+    # proxy tasks and their multinomial mix ratios; mrc/og are working
+    # tasks here, dormant code in the reference (pretrain_cmt.py:59-64)
+    tasks: Tuple[str, ...] = ("mlm", "sap")
+    task_ratios: Tuple[float, ...] = (1.0, 1.0)
+    mrc_mask_prob: float = 0.15
+    image_prob_size: int = 1000          # CLIP soft-label dim (MRC)
+    num_objs: int = 0                    # object tokens per step (OG)
+    resume: bool = False                 # resume from the newest model_step_N
+    # optimizer family + schedule (optim/misc.py:26-37, optim/sched.py)
+    optim: str = "adamw"   # adam | adamax | adamw | radam | ralamb | rangerlars
+    lr_sched: str = "warmup_linear"      # warmup_linear | noam
+    betas: Tuple[float, float] = (0.9, 0.98)
+    lookahead_alpha: float = 0.5         # optim/lookahead.py:13
+    lookahead_k: int = 6
+    log_steps: int = 1000
+    valid_steps: int = 5000
+    # trajectory shape buckets
+    max_traj_steps: int = 8
+    views_per_step: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """EVAL section (iter_train.yaml; ss_trainer_ETP.py:513-641)."""
 
@@ -240,13 +276,14 @@ class ExperimentConfig:
     depth: DepthEncoderConfig = DepthEncoderConfig()
     graph: GraphConfig = GraphConfig()
     il: ILConfig = ILConfig()
+    pretrain: PretrainConfig = PretrainConfig()
     eval: EvalConfig = EvalConfig()
     inference: InferenceConfig = InferenceConfig()
     paths: DataPathsConfig = DataPathsConfig()
     seed: int = 0
-    # MODEL.pretrained_path: a released PyTorch pretrain checkpoint to
-    # convert and load into the planner before fine-tuning
-    # (iter_train.yaml)
+    # MODEL.pretrained_path: the planner to start fine-tuning from, a
+    # pretrain checkpoint of the port (`training/warm_start.py`) or a
+    # released PyTorch pretrain checkpoint, converted (iter_train.yaml)
     pretrained_path: str = ""
     # top-level run layout (iter_train.yaml NUM_ENVIRONMENTS + *_DIR keys)
     num_environments: int = 8
@@ -286,6 +323,7 @@ def rxr_config(**overrides) -> ExperimentConfig:
     planner = PlannerConfig(
         vocab_size=250002,
         lang_layer_norm_eps=1e-5,
+        max_txt_len=200,
         pad_token_id=1,
         type_vocab_size=2,
         max_gmap_len=96,                     # see r2r_config docstring
@@ -311,6 +349,7 @@ def tiny_config(**overrides) -> ExperimentConfig:
         num_x_layers=2,
         image_feat_size=32,
         depth_feat_size=16,
+        max_txt_len=16,
         max_gmap_len=16,
         use_bf16=False,
     )
@@ -324,6 +363,10 @@ def tiny_config(**overrides) -> ExperimentConfig:
                                layers=(1, 1, 1, 1), output_size=64)
     il = ILConfig(iters=2, log_every=1, batch_size=2, max_traj_len=4,
                   max_text_len=16)
+    pretrain = PretrainConfig(num_train_steps=4, warmup_steps=2,
+                              batch_size=2, max_traj_steps=3,
+                              views_per_step=12)
     cfg = ExperimentConfig(task_type="r2r", planner=planner,
-                           waypoint=waypoint, clip=clip, depth=depth, il=il)
+                           waypoint=waypoint, clip=clip, depth=depth, il=il,
+                           pretrain=pretrain)
     return dataclasses.replace(cfg, **overrides)

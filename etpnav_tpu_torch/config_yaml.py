@@ -5,10 +5,14 @@ refusal of unknown keys).
 YAML layout:
     BASE: r2r              # or rxr / tiny preset
     IL: {lr: 1.0e-5, iters: 15000, expert_policy: spl}
+    PRETRAIN: {optim: adamw, num_train_steps: 100000}
     CLIP: {use_fused_block: true}
 
+A TPU-only key of a ported section (IL.rng_impl, PRETRAIN.rng_impl, ...)
+is not a field here and raises KeyError like any unknown key.
+
 A section of the JAX package's config that the port does not have yet
-(PRETRAIN, DAGGER, MESH, and the env-worker keys) raises
+(DAGGER, MESH, and the env-worker keys) raises
 NotImplementedError naming the ROADMAP item that ports it; an unknown
 section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
 parse YAML, so `config_from_dict` and the runner's `run_config` need no
@@ -29,6 +33,7 @@ _SECTION_FIELDS = {
     "DEPTH": "depth",
     "GRAPH": "graph",
     "IL": "il",
+    "PRETRAIN": "pretrain",
     "EVAL": "eval",
     "INFERENCE": "inference",
     "PATHS": "paths",
@@ -37,7 +42,6 @@ _SECTION_FIELDS = {
 # sections of the JAX package's config that are not ported yet, with the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "PRETRAIN": "ROADMAP §1 item 6 (pretraining and the warm start)",
     "DAGGER": "ROADMAP §1 item 8 (legacy DAgger policies)",
     "MESH": "ROADMAP §1 item 7 (distribution)",
     "RESTART_CRASHED_WORKERS": "ROADMAP §1 item 5 (the env workers)",

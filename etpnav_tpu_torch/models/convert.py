@@ -20,10 +20,12 @@ trunk's blocks in a list).
      (`{'state_dict': {'net.module.vln_bert.*', ...}}`);
    - HF `BertModel` / `XLMRobertaModel` encoders (the goldens).
    Linear weights go from torch (out, in) to the tree's (in, out).
-2. `load_jax_tree` copies a tree into a port module, and
+2. `load_jax_tree` copies a tree into a port module;
    `agent_params_from_jax` takes the JAX `AgentParams` as nested dicts
    (or the NamedTuple) of numpy arrays — no JAX object crosses over —
-   and returns a loaded `Agent`:
+   and returns a loaded `Agent`, and `pretrain_params_from_jax` takes
+   the tree of the JAX `init_pretrain_params` and returns loaded
+   `PretrainParams`:
 
 - dense `w` goes from (in, out) to PyTorch's (out, in);
 - convolution kernels go from HWIO to OIHW;
@@ -114,6 +116,19 @@ def agent_params_from_jax(tree: Any, cfg: ExperimentConfig, *,
     params = AgentParams(cfg)
     load_jax_tree(params, tree)
     return Agent(cfg, params, device=device)
+
+
+def pretrain_params_from_jax(tree: Any, cfg: ExperimentConfig,
+                             tasks=None):
+    """The JAX `init_pretrain_params` tree as numpy -> `PretrainParams`
+    (on the CPU) for `tasks` (default `cfg.pretrain.tasks`); strict, so a
+    head of the tree without a task, or a task without its head,
+    raises."""
+    from etpnav_tpu_torch.training.pretrain import PretrainParams
+    tasks = cfg.pretrain.tasks if tasks is None else tasks
+    params = PretrainParams(cfg.planner, tasks, cfg.pretrain.image_prob_size)
+    load_jax_tree(params, tree)
+    return params
 
 
 # ---------------------------------------------------------------------------

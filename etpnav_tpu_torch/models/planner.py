@@ -1,10 +1,14 @@
 """Cross-modal topological planner (counterpart of
-`etpnav_tpu/models/planner.py`: the fine-tuning and inference paths):
+`etpnav_tpu/models/planner.py`):
 
 - forward_txt        BERT embeddings + the language encoder
 - forward_panorama   RGB/depth/angle fusion + the pre-norm pano encoder
 - forward_navigation graph node embedding + the graph-aware cross-modal
                      layers (sprel attention bias) + the SAP head
+- pretraining only: `lang2visn_stack` (the text attending into the graph
+  through the same cross-modal layers, for MLM), `forward_local` (the
+  local viewpoint encoder, for MRC and OG) and the MLM, region and
+  classification heads
 
 Inputs are fixed-shape padded tensors with boolean masks, as in the JAX
 package; ragged assembly happens host-side in `graph/topo_map.py`. With
@@ -42,8 +46,10 @@ from etpnav_tpu_torch.ops.basic import (
     LayerNorm,
     Linear,
     dropout,
+    gelu_erf,
     init_weights,
     mask_to_bias,
+    matmul_f32,
 )
 
 # the SAP head's dropout (vilmodel_cmt.py NextActionPrediction)
@@ -80,40 +86,88 @@ class PosEmbeddings(nn.Module):
 
 class XLayer(nn.Module):
     """GraphLXRTXLayer (vilmodel_cmt.py:365-398): cross-attention into
-    the text, graph self-attention, FFN."""
+    the text, graph self-attention, FFN. Pretraining adds the language
+    branch (`lang_self_att`, `lang_ffn`) that `lang2visn_stack` runs
+    (pretrain vilmodel.py:400-411)."""
 
-    def __init__(self, cfg: PlannerConfig):
+    def __init__(self, cfg: PlannerConfig, use_lang2visn: bool = False):
         super().__init__()
         self.visual_attention = AttentionBlock(cfg.hidden_size)
         self.visn_self_att = AttentionBlock(cfg.hidden_size)
         self.visn_ffn = BertFFN(cfg.hidden_size, cfg.intermediate_size)
+        if use_lang2visn:
+            self.lang_self_att = AttentionBlock(cfg.hidden_size)
+            self.lang_ffn = BertFFN(cfg.hidden_size, cfg.intermediate_size)
+
+
+def x_stack_modules(cfg: PlannerConfig,
+                    use_lang2visn: bool = False) -> nn.ModuleList:
+    return nn.ModuleList(XLayer(cfg, use_lang2visn)
+                         for _ in range(cfg.num_x_layers))
 
 
 class GlobalEncoder(nn.Module):
-    def __init__(self, cfg: PlannerConfig):
+    def __init__(self, cfg: PlannerConfig, use_lang2visn: bool = False):
         super().__init__()
         D = cfg.hidden_size
         self.gmap_pos_embeddings = PosEmbeddings(cfg.angle_feat_size + 3, D)
         self.gmap_step_embeddings = nn.Parameter(
             torch.zeros(cfg.max_action_steps, D))
-        self.encoder = nn.ModuleList(XLayer(cfg)
-                                     for _ in range(cfg.num_x_layers))
+        self.encoder = x_stack_modules(cfg, use_lang2visn)
         if cfg.graph_sprels:
             self.sprel_linear = Linear(1, 1)
 
 
 class SapHead(nn.Module):
-    """NextActionPrediction: Linear, ReLU, LN, Linear(h, 1)."""
+    """NextActionPrediction: Linear, ReLU, LN, Linear(h, 1). The
+    pretraining heads RegionClassification (Linear(h, label_dim) last)
+    and ClsPrediction have the same tree."""
 
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, out: int = 1):
         super().__init__()
         self.dense1 = Linear(hidden, hidden)
         self.ln = LayerNorm(hidden)
-        self.dense2 = Linear(hidden, 1)
+        self.dense2 = Linear(hidden, out)
+
+
+class RegionHead(SapHead):
+    """RegionClassification for MRC (pretrain_cmt.py:12-23)."""
+
+
+class ClsHead(SapHead):
+    """ClsPrediction for OG (pretrain_cmt.py:25-35)."""
+
+
+class LocalEncoder(nn.Module):
+    """LocalVPEncoder (pretrain vilmodel.py:537-568): a 14-d viewpoint
+    position embedding and cross-modal layers over the final viewpoint's
+    tokens (the MRC/OG branch)."""
+
+    def __init__(self, cfg: PlannerConfig):
+        super().__init__()
+        self.vp_pos_embeddings = PosEmbeddings(cfg.angle_feat_size * 2 + 6,
+                                               cfg.hidden_size)
+        self.encoder = x_stack_modules(cfg)
+
+
+class MLMHead(nn.Module):
+    """BertOnlyMLMHead (vilmodel_cmt.py:258-299): transform dense + LN;
+    the decoder is tied to the word embeddings, so only its output bias
+    is a parameter here."""
+
+    def __init__(self, cfg: PlannerConfig):
+        super().__init__()
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.ln = LayerNorm(cfg.hidden_size)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def init_(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.bias.zero_()
 
 
 class PlannerParams(nn.Module):
-    def __init__(self, cfg: PlannerConfig):
+    def __init__(self, cfg: PlannerConfig, use_lang2visn: bool = False):
         super().__init__()
         self.embeddings = BertEmbeddings(
             cfg.vocab_size, cfg.hidden_size, cfg.max_position_embeddings,
@@ -121,13 +175,13 @@ class PlannerParams(nn.Module):
         self.lang_encoder = bert_stack_modules(
             cfg.num_l_layers, cfg.hidden_size, cfg.intermediate_size)
         self.img_embeddings = ImgEmbeddings(cfg)
-        self.global_encoder = GlobalEncoder(cfg)
+        self.global_encoder = GlobalEncoder(cfg, use_lang2visn)
         self.global_sap_head = SapHead(cfg.hidden_size)
 
 
-def init_planner_params(cfg: PlannerConfig,
-                        generator: torch.Generator) -> PlannerParams:
-    params = PlannerParams(cfg)
+def init_planner_params(cfg: PlannerConfig, generator: torch.Generator,
+                        use_lang2visn: bool = False) -> PlannerParams:
+    params = PlannerParams(cfg, use_lang2visn)
     init_weights(params, generator)
     return params
 
@@ -202,6 +256,98 @@ def _x_layer(layer: XLayer, cfg: PlannerConfig, visn: torch.Tensor,
                                 visn_bias, eps,
                                 attn_dropout=cfg.attn_dropout, **drop)
     return bert_ffn(layer.visn_ffn, visn, eps, **drop)
+
+
+def _lang2visn_layer(layer: XLayer, cfg: PlannerConfig,
+                     lang: torch.Tensor, visn: torch.Tensor,
+                     lang_bias: torch.Tensor, visn_bias: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False) -> torch.Tensor:
+    """GraphLXRTXLayer.forward_lang2visn (vilmodel_cmt.py:400-411): the
+    text cross-attends into the graph through `visual_attention` (its
+    weights shared with the graph-into-text direction), then the text
+    self-attention and FFN."""
+    eps = cfg.vis_layer_norm_eps
+    drop = {"hidden_dropout": cfg.hidden_dropout, "generator": generator,
+            "train": train}
+    lang = cross_attention_block(layer.visual_attention, lang, visn,
+                                 cfg.num_heads, visn_bias, eps,
+                                 attn_dropout=cfg.attn_dropout, **drop)
+    lang = self_attention_block(layer.lang_self_att, lang, cfg.num_heads,
+                                lang_bias, eps,
+                                attn_dropout=cfg.attn_dropout, **drop)
+    return bert_ffn(layer.lang_ffn, lang, eps, **drop)
+
+
+def lang2visn_stack(layers: nn.ModuleList, cfg: PlannerConfig,
+                    lang: torch.Tensor, visn: torch.Tensor,
+                    lang_bias: torch.Tensor, visn_bias: torch.Tensor, *,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False) -> torch.Tensor:
+    """The MLM path over the global encoder's cross-modal layers (pretrain
+    vilmodel.py:731-741): (B, L, D) text, (B, G, D) graph -> (B, L, D),
+    in the text's dtype."""
+    for layer in layers:
+        lang = _lang2visn_layer(layer, cfg, lang, visn, lang_bias,
+                                visn_bias, generator=generator, train=train)
+    return lang
+
+
+def forward_local(params: nn.Module, cfg: PlannerConfig,
+                  txt_embeds: torch.Tensor, txt_masks: torch.Tensor,
+                  vp_tok_embeds: torch.Tensor, vp_tok_masks: torch.Tensor,
+                  vp_pos_fts: torch.Tensor, *,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = False) -> torch.Tensor:
+    """LocalVPEncoder.forward (pretrain vilmodel.py:561-568).
+    vp_tok_embeds (B, P, D) pano-encoder outputs of the final step,
+    vp_tok_masks (B, P) bool, vp_pos_fts (B, 1+P, 14) with row 0 the
+    [stop] token -> (B, 1+P, D) fp32, [stop] first. `params` holds a
+    `local_encoder`."""
+    le = params.local_encoder
+    B, _, D = vp_tok_embeds.shape
+    stop = vp_tok_embeds.new_zeros(B, 1, D)
+    x = torch.cat([stop, vp_tok_embeds], dim=1)
+    x = x + le.vp_pos_embeddings.ln(le.vp_pos_embeddings.dense(vp_pos_fts),
+                                    cfg.vis_layer_norm_eps)
+    masks = torch.cat([vp_tok_masks.new_ones(B, 1), vp_tok_masks], dim=1)
+    txt_bias = mask_to_bias(txt_masks)[:, None, None, :]
+    visn_bias = mask_to_bias(masks)[:, None, None, :]
+    dtype = _compute_dtype(cfg.use_bf16)
+    visn, txt = x.to(dtype), txt_embeds.to(dtype)
+    for layer in le.encoder:
+        visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias,
+                        generator=generator, train=train)
+    return visn.float()
+
+
+def _head(params: SapHead, x: torch.Tensor, eps: float) -> torch.Tensor:
+    h = F.relu(params.dense1(x))
+    return params.dense2(params.ln(h, eps))
+
+
+def region_head(params: RegionHead, x: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """(..., D) -> (..., label_dim) region soft-label logits."""
+    return _head(params, x, eps)
+
+
+def cls_head(params: ClsHead, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(..., D) -> (...) scalar logits."""
+    return _head(params, x, eps)[..., 0]
+
+
+def mlm_head(params: MLMHead, word_embeddings: torch.Tensor,
+             x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x (..., D) -> vocab logits, the decoder tied to the word embeddings
+    (pretrain_cmt.py:80-83): the table cast to x's dtype, the product
+    accumulated in fp32 and rounded once (`matmul_f32`), plus the fp32
+    bias. The gradient reaches the word embeddings through this product
+    and through their lookup."""
+    h = gelu_erf(params.transform(x))
+    h = params.ln(h, eps)
+    logits = matmul_f32(h, word_embeddings.t().to(h.dtype))
+    return logits + params.bias
 
 
 def sap_head(params: SapHead, x: torch.Tensor, eps: float, *,

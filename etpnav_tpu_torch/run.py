@@ -12,6 +12,10 @@ network service (serving.py + serving_http.py).
         --run-type serve --ckpt checkpoints/ckpt_iter12000.pt --port 8080
     python -m etpnav_tpu_torch.run --exp-config configs/r2r_tiny.yaml \
         --device cpu --run-type eval --episode-count 4
+    python -m etpnav_tpu_torch.run --exp-config configs/pretrain.yaml \
+        --trainer Pretrain CHECKPOINT_FOLDER=ckpt/pretrain
+    python -m etpnav_tpu_torch.run --exp-config configs/r2r.yaml \
+        PRETRAINED_PATH=ckpt/pretrain/model_step_100000.pt
 
 Everything runs on the GPU unless `--device cpu` is passed; with no GPU
 and no `--device cpu` the trainer raises. `run(argv)` parses the command
@@ -46,18 +50,19 @@ TRAINER_REGISTRY: Dict[str, Callable] = {}
 # ROADMAP item that ports each
 NOT_PORTED = {
     "DAgger": "ROADMAP §1 item 8 (legacy DAgger policies)",
-    "Pretrain": "ROADMAP §1 item 6 (pretraining and the warm start)",
     "--workers": "ROADMAP §1 item 5 (the env workers)",
     "--pipeline-halves": "ROADMAP §1 item 5 (the pipelined rollout)",
     "--video": "ROADMAP §1 item 5 (eval videos)",
-    "pretrained_path directory": "ROADMAP §1 item 6 (the warm start from "
-                                 "a JAX pretrain checkpoint directory)",
+    "pretrained_path directory": "a directory names a JAX (orbax) pretrain "
+                                 "checkpoint, which the port does not read; "
+                                 "pretrain with `--trainer Pretrain` and "
+                                 "give its model_step_N.pt file",
 }
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to etpnav_tpu_torch "
-                               f"yet: {NOT_PORTED[what]}")
+    return NotImplementedError(f"{what} is not ported to etpnav_tpu_torch: "
+                               f"{NOT_PORTED[what]}")
 
 
 def register_trainer(name: str):
@@ -98,6 +103,40 @@ def _build_ss_etp(cfg, args):
                            device=args.device)
 
 
+@register_trainer("Pretrain")
+def _build_pretrain(cfg, args):
+    from etpnav_tpu_torch.training.pretrain import (
+        PretrainTrainer,
+        pretrain_shapes,
+    )
+    return PretrainTrainer(cfg, pretrain_shapes(cfg), seed=cfg.seed,
+                           device=args.device)
+
+
+def load_pretrained_path(trainer, path: str) -> None:
+    """MODEL.pretrained_path into a fine-tune trainer: a pretrain
+    checkpoint of the port (it carries `PretrainTrainer`'s marker) goes
+    to the warm start; any other file must be a released PyTorch planner
+    checkpoint and goes to the converter, or raises ValueError. A
+    directory (a JAX orbax checkpoint) is refused."""
+    from etpnav_tpu_torch.training.warm_start import is_pretrain_checkpoint
+    if os.path.isdir(path):
+        raise _not_ported("pretrained_path directory")
+    if is_pretrain_checkpoint(path):
+        trainer.load_pretrained(path)
+        logger.info("warm-started the planner from pretrain checkpoint %s",
+                    path)
+        return
+    try:
+        trainer.load_pretrained_planner(path)
+    except Exception as e:
+        raise ValueError(
+            f"MODEL.pretrained_path {path} is neither a pretrain checkpoint "
+            "of etpnav_tpu_torch nor a released planner checkpoint "
+            f"({type(e).__name__}: {e})") from e
+    logger.info("loaded the released pretrained planner from %s", path)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="etpnav_tpu_torch runner")
     ap.add_argument("--exp-config", default=None,
@@ -118,8 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve: return (httpd, nav) instead of "
                          "blocking (programmatic use / tests)")
     ap.add_argument("--trainer", default="SS-ETP",
-                    choices=sorted({*TRAINER_REGISTRY, "DAgger",
-                                    "Pretrain"}))
+                    choices=sorted({*TRAINER_REGISTRY, "DAgger"}))
     ap.add_argument("--num-envs", type=int, default=0,
                     help="0 = cfg NUM_ENVIRONMENTS (reference keeps "
                          "IL.batch_size equal to it)")
@@ -205,11 +243,8 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
                          else None)
     if ckpt:
         trainer.load_checkpoint(ckpt)
-    elif cfg.pretrained_path:
-        if os.path.isdir(cfg.pretrained_path):
-            raise _not_ported("pretrained_path directory")
-        trainer.load_pretrained_planner(cfg.pretrained_path)
-        logger.info("loaded pretrained planner from %s", cfg.pretrained_path)
+    elif cfg.pretrained_path and hasattr(trainer, "load_pretrained"):
+        load_pretrained_path(trainer, cfg.pretrained_path)
 
     gt_paths = None
     if args.gt_path:
@@ -231,6 +266,21 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
                     args.host, args.port)
         return serve(nav, args.host, args.port)
 
+    if args.run_type == "train" and hasattr(trainer, "train_steps"):
+        # pretraining: PRETRAIN.resume picks up the newest model_step_N
+        # of CHECKPOINT_FOLDER (the JAX runner's layout)
+        if (cfg.pretrain.resume and not args.ckpt
+                and trainer.resume_latest(cfg.checkpoint_folder)):
+            logger.info("resumed pretraining at step %d", trainer.step)
+        os.makedirs(cfg.checkpoint_folder, exist_ok=True)
+        logs = trainer.train_steps(
+            max(cfg.pretrain.num_train_steps - trainer.step, 0),
+            ckpt_dir=cfg.checkpoint_folder)
+        logger.info("pretrain done: %s", logs)
+        return logs
+    if hasattr(trainer, "train_steps"):
+        raise ValueError(f"--trainer Pretrain has no --run-type "
+                         f"{args.run_type}; use train")
     if args.run_type == "train":
         # IL.is_requeue gates auto-resume (ss_trainer_ETP.py:216-236)
         if (cfg.il.is_requeue and not args.ckpt

@@ -401,6 +401,16 @@ class FinetuneTrainer:
 
     # ------------------------------------------------------------- ckpts
 
+    def load_pretrained(self, path: str):
+        """Warm start from a `PretrainTrainer` checkpoint of the port
+        (`training/warm_start.py`): its trunk goes into the planner in
+        place, and the optimizer starts fresh, as the reference's
+        fine-tune stage does."""
+        from etpnav_tpu_torch.training.warm_start import \
+            load_pretrained_planner
+        load_pretrained_planner(path, self.params.planner)
+        self.optimizer = make_il_optimizer(self.cfg, self.params.planner)
+
     def load_pretrained_planner(self, path: str):
         """MODEL.pretrained_path: a released PyTorch pretrain (or
         fine-tune) checkpoint, converted (vlnbert_init.py:21-30 key

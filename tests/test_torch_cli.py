@@ -71,7 +71,8 @@ def assert_config_matches_jax(ours, theirs):
             assert a == b, f.name
 
 
-@pytest.mark.parametrize("name", ["r2r.yaml", "rxr.yaml", "r2r_tiny.yaml"])
+@pytest.mark.parametrize("name", ["r2r.yaml", "rxr.yaml", "r2r_tiny.yaml",
+                                  "pretrain.yaml"])
 def test_yaml_configs_load_to_jax_values(name):
     path = str(ROOT / "configs" / name)
     opts = ["IL.lr=3.0e-5", "CLIP.use_fused_block=true",
@@ -83,8 +84,7 @@ def test_yaml_configs_load_to_jax_values(name):
     assert_config_matches_jax(ours, theirs)
 
 
-@pytest.mark.parametrize("name,item", [("pretrain.yaml", "item 6"),
-                                       ("dagger_r2r.yaml", "item 8")])
+@pytest.mark.parametrize("name,item", [("dagger_r2r.yaml", "item 8")])
 def test_unported_sections_raise(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         config_yaml.load_config(str(ROOT / "configs" / name))
@@ -188,13 +188,13 @@ def test_run_refusals(tmp_path, monkeypatch):
         run(["--exp-config", exp, "--num-envs", "2"])
     base = ["--exp-config", exp, "--device", "cpu", "--num-envs", "2"]
     for extra, item in ((["--trainer", "DAgger"], "item 8"),
-                        (["--trainer", "Pretrain"], "item 6"),
                         (["--workers"], "item 5"),
                         (["--pipeline-halves", "2"], "item 5"),
                         (["--run-type", "eval", "--video"], "item 5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
             run(base + extra)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a directory is a JAX (orbax) pretrain checkpoint: not read
+    with pytest.raises(NotImplementedError, match="orbax"):
         run(["--exp-config", _exp(tmp_path, f"PRETRAINED_PATH: {tmp_path}\n"),
              "--device", "cpu", "--num-envs", "2"])
     with pytest.raises(TypeError, match="bogus"):

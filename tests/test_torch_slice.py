@@ -242,6 +242,9 @@ def test_port_imports_no_jax():
             "etpnav_tpu_torch/data/tokenization.py",
             "etpnav_tpu_torch/models/tree.py",
             "etpnav_tpu_torch/training/eval_loop.py",
+            "etpnav_tpu_torch/training/pretrain.py",
+            "etpnav_tpu_torch/training/warm_start.py",
+            "etpnav_tpu_torch/data/pretrain_data.py",
             "etpnav_tpu_torch/utils/logging.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
