@@ -106,6 +106,25 @@ Phases, each reported on its own lines:
      at every pretraining attention shape, with device times beside the
      bound and SDPA's; K-ATT-BWD's key limit at every pretraining shape
      for R2R and RxR;
+  11. the IL trainer's feed at r2r_config() width, each stage with every
+     count at 0 before it and read after, exact launch counts and no
+     plain call: (a) `run_config(run_type="train", workers=True,
+     pipeline_halves=2)` with RESTART_CRASHED_WORKERS, SHM_OBSERVATIONS
+     and every IL switch on (agg_dense_device, depth_transport_uint16,
+     remat, remat_nav), 8 envs in 2 pools of 4 forkserver workers, 2
+     iterations, one worker killed mid-rollout and respawned; (b) rollout
+     seconds per interval in turns A B C C B A (A in-process
+     GeometricNavEnv(8), B 8 workers, C 2 pools of 4 in threads) after
+     one warm interval each, and the device's busy share of one profiled
+     interval of each; (c) the learn step's loss and planner gradients
+     with IL.agg_dense_device on against off (fp32, dropout off), then
+     its p50 at (T20, G64) and (T20, G96) off and on in turns, with
+     `indexing_backward_kernel` launches and ms; (d) the gradients with
+     IL.remat_nav and IL.remat against the memoryful step's at dropout
+     0.1 from one generator state, then p50, peak memory and K-ATT per
+     step (19 -> 27 -> 29) in turns; (e) perceive with uint16 depth
+     against the dequantized and the fp32 depth, the upload's bytes
+     halved;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -1120,9 +1139,15 @@ def geometric_envs(cfg, n: int, seed: int):
         depth_size=cfg.depth.input_size, pad_id=cfg.planner.pad_token_id)
 
 
+_CALLS_LOCK = threading.Lock()
+
+
 def counted(fn, calls: collections.Counter, name: str):
+    """fn, counting its calls in `calls[name]` (from any thread: the
+    pipelined rollout calls the agent's programs from two)."""
     def wrapper(*a, **kw):
-        calls[name] += 1
+        with _CALLS_LOCK:
+            calls[name] += 1
         return fn(*a, **kw)
     return wrapper
 
@@ -2776,6 +2801,611 @@ def check_bwd_key_limits(card: str, cfgs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the IL trainer's feed (env workers, pipelined rollout, switches)
+# ---------------------------------------------------------------------------
+
+# envs of phase 11's pools, and the training iterations of stage (a)
+FEED_ENVS = 8
+FEED_ITERS = 2
+# stage (a) kills worker 0 of the pool that makes the pools' CRASH_AT-th
+# step call, before that call
+CRASH_AT = 3
+# rounds of stage (c)'s and (d)'s turns (each round runs every variant
+# twice, forward and back); stage (b) runs A B C C B A once
+LEARN_ROUNDS = 2
+# stage (c), IL.agg_dense_device on the card: the dense matrix against
+# the one built on the CPU from the same record (the same products of one
+# nonzero term each, the ghost shares scattered to distinct places):
+# AGG_W_ATOL; the aggregation itself, dense against sparse, on random
+# tokens: max |diff| <= AGG_SUM_REL * max |x| (fp32 sums of at most P + M
+# terms in another order); the learn step's loss (AGG_LOSS_REL) and every
+# planner gradient, fp32, dropout off: per tensor whose norm is at least
+# AGG_LIVE of the largest, ||g_on - g_off|| <= AGG_GRAD_L2 * ||g_off||,
+# and for every tensor max |diff| <= AGG_DENSE_REL * max |g_off| + 1e-6.
+# Mostly the gradients agree to ~1e-6; but the SAP head's ReLU sees
+# 160 x 96 x 768 pre-activations, and one within rounding of zero
+# (9.9e-8) took the other branch on one of four recorded intervals (an
+# NVIDIA H100 80GB HBM3 at 700 W): the gradients then differed by 2.5e-4
+# in L2 and by 1.2e-3 of the largest element of the SAP head's dense1. A fault in W (an entry at
+# the wrong token or slot, a share lost) moves the aggregation and the
+# loss far past their bounds.
+AGG_W_ATOL = 1e-7
+AGG_SUM_REL = 1e-6
+AGG_LOSS_REL = 1e-6
+AGG_LIVE = 1e-2
+AGG_GRAD_L2 = 1e-3
+AGG_DENSE_REL = 1e-2
+# stage (d): the checkpointed steps against the memoryful one at dropout
+# 0.1 from the same generator state, bf16 stacks: max |diff| <=
+# REMAT_REL * max |g| + 1e-7 per tensor. The recompute is the same ops on
+# the same inputs with the same draws; a recompute with new dropout
+# masks moves gradients by a large fraction of their largest (0.7 of it
+# at tiny_config on the CPU)
+REMAT_REL = 1e-3
+# stage (e): perceive with uint16 depth against the same perceive on the
+# host-dequantized depth (q / 65535 in fp32; the device multiplies by
+# 1/65535 instead, 1 ulp apart) and against the fp32 depth it quantizes
+# (tests/test_depth_transport.py's bound), fp32 model
+U16_DEQUANT_TOL = 1e-5
+U16_FP32_TOL = 5e-3
+
+
+def env_kwargs(cfg) -> dict:
+    return dict(vocab_size=cfg.planner.vocab_size,
+                max_instr_len=cfg.il.max_text_len,
+                image_size=cfg.clip.image_size,
+                depth_size=cfg.depth.input_size,
+                pad_id=cfg.planner.pad_token_id)
+
+
+def feed_counts(name: str, counters, calls, learn_fwd: int = 0,
+                learn_bwd: int = 0) -> dict:
+    """The launch counts since the counters' reset, exactly what the
+    program calls of the default configuration and the learn steps'
+    attention calls make; plain versions count 0."""
+    per = PER_CALL["default"]
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: sum(per[p].get(k, 0) * calls[p] for p in per)
+            for k in counters}
+    want["attention_fwd"] += learn_fwd
+    want["attention_bwd"] += learn_bwd
+    if counts != want:
+        raise AssertionError(f"feed {name}: launches {counts} != {want} "
+                             f"for {dict(calls)}, learn {learn_fwd} K-ATT "
+                             f"+ {learn_bwd} K-ATT-BWD")
+    return {k: v for k, v in counts.items() if v}
+
+
+def learn_attentions(cfg, G: int, recompute: bool = True) -> int:
+    """K-ATT launches of one learn step: 9 text + 2 pano + 4 x (cross +
+    graph self) at r2r_config (K-ATT-BWD's count), plus, with
+    `recompute`, the recompute of the pano encoder (IL.remat) and of the
+    navigation layers (IL.remat_nav at G >= remat_nav_min_gmap)."""
+    p, il = cfg.planner, cfg.il
+    n = p.num_l_layers + p.num_pano_layers + 2 * p.num_x_layers
+    if not recompute:
+        return n
+    if il.remat:
+        n += p.num_pano_layers
+    if il.remat_nav and G >= il.remat_nav_min_gmap:
+        n += 2 * p.num_x_layers
+    return n
+
+
+@contextlib.contextmanager
+def crash_and_learn_spies():
+    """Stage (a)'s instruments, at class and module level (the runner
+    builds its own pools and trainer): the pools' CRASH_AT-th step call
+    first kills worker 0 of its pool (`inject_worker_crash`), every
+    crashed-and-respawned slot is counted, and every learn step's graph
+    bucket is recorded."""
+    from etpnav_tpu_torch.env.vector import ProcessVectorEnv
+    from etpnav_tpu_torch.training import finetune
+    step, learn = ProcessVectorEnv.step, finetune.learn_step
+    lock = threading.Lock()
+    seen = {"steps": 0, "injected": 0, "crashed": 0, "restarts": 0,
+            "shm_pools": set(), "pools": set(), "learn_G": []}
+
+    def spy_step(self, actions):
+        with lock:
+            seen["steps"] += 1
+            seen["pools"].add(id(self))
+            if self._shm_spec is not None:
+                seen["shm_pools"].add(id(self))
+            inject = seen["steps"] == CRASH_AT
+        if inject:
+            self.inject_worker_crash(0)
+        res = step(self, actions)
+        with lock:
+            seen["injected"] += inject
+            seen["crashed"] += sum(bool(r.info.get("crashed")) for r in res)
+            seen["restarts"] = max(seen["restarts"], sum(self._restarts))
+        return res
+
+    def spy_learn(planner, optimizer, cfg_, batch, generator=None):
+        seen["learn_G"].append(int(batch["gmap_mask"].shape[2]))
+        return learn(planner, optimizer, cfg_, batch, generator)
+
+    ProcessVectorEnv.step, finetune.learn_step = spy_step, spy_learn
+    try:
+        yield seen
+    finally:
+        ProcessVectorEnv.step, finetune.learn_step = step, learn
+
+
+def feed_training(card: str, counters, tmp: str, device: str,
+                  base: str = "r2r") -> dict:
+    """Stage (a): `run_config(run_type="train", workers=True,
+    pipeline_halves=2)` from a YAML-style dict with
+    RESTART_CRASHED_WORKERS, SHM_OBSERVATIONS and every IL switch on:
+    FEED_ENVS envs in 2 pools of worker processes, FEED_ITERS iterations,
+    worker 0 of one pool killed mid-rollout and respawned; a finite loss,
+    exact launch counts, every worker stopped at the end."""
+    import multiprocessing
+
+    from etpnav_tpu_torch.config_yaml import config_from_dict
+    from etpnav_tpu_torch.run import run_config
+    cfg = config_from_dict({
+        "BASE": base, "RESTART_CRASHED_WORKERS": True,
+        "SHM_OBSERVATIONS": True,
+        "IL": {"iters": FEED_ITERS, "log_every": 1000,
+               "agg_dense_device": True, "depth_transport_uint16": True,
+               "remat": True, "remat_nav": True}})
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with program_calls() as calls, crash_and_learn_spies() as seen:
+        logs = run_config(cfg, run_type="train", device=device,
+                          workers=True, pipeline_halves=2,
+                          num_envs=FEED_ENVS,
+                          ckpt_dir=os.path.join(tmp, "feed_ckpt"))
+        sync()
+    secs = time.perf_counter() - t0
+    fwd = sum(learn_attentions(cfg, G) for G in seen["learn_G"])
+    bwd = sum(learn_attentions(cfg, G, recompute=False)
+              for G in seen["learn_G"])
+    counts = feed_counts("(a) runner", counters, calls, fwd, bwd)
+    left = multiprocessing.active_children()
+    res = {"seconds": secs, "IL_loss": logs["IL_loss"],
+           "rollout_s": logs["rollout_s"], "learn_s": logs["learn_s"],
+           "learn_G": seen["learn_G"], "calls": dict(calls),
+           "launches": counts, "pools": len(seen["pools"]),
+           "shm_pools": len(seen["shm_pools"]),
+           "crash_injected": seen["injected"],
+           "crashed_results": seen["crashed"],
+           "restarts": seen["restarts"], "workers_left": len(left)}
+    if not (np.isfinite(logs["IL_loss"]) and len(seen["learn_G"]) == FEED_ITERS
+            and seen["injected"] == 1 and seen["crashed"] >= 1
+            and seen["restarts"] >= 1 and res["pools"] == 2
+            and res["shm_pools"] == 2 and not left):
+        raise AssertionError(f"feed (a): {res}")
+    log(f"feed (a) runner --workers --pipeline-halves 2: {json.dumps(res)} "
+        f"[{card}]")
+    return res
+
+
+def profiled_busy(fn, host_ops: bool = True):
+    """(fn's result, wall ms, device ms, the profiler's device events) of
+    one profiled call; without `host_ops` the profiler records the
+    device's activity only (a rollout interval's ~60,000 host ops cost
+    tens of seconds to collect)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not e.key.startswith("Optimizer.")]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    return out, wall_ms, dev_ms, ev
+
+
+def rollout_three_ways(card: str, cfg, agent, counters, device: str,
+                       profile: bool = True) -> tuple:
+    """Stage (b): rollout seconds per training interval (teacher-forced,
+    FEED_ENVS envs, T = max_traj_len), three ways in turns A B C C B A:
+    A in-process GeometricNavEnv(FEED_ENVS); B one pool of FEED_ENVS
+    worker processes (`--workers`, shm observations); C two pools of
+    FEED_ENVS / 2 in two threads (`--workers --pipeline-halves 2`). Then
+    the device's busy share of one profiled interval of each. Exact
+    launch counts over the stage."""
+    from etpnav_tpu_torch.env.geometric import GeometricNavEnv
+    from etpnav_tpu_torch.env.vector import construct_geometric_envs
+    from etpnav_tpu_torch.training.pipeline import PipelinedRollout
+    from etpnav_tpu_torch.training.rollout import RolloutEngine
+    kw = env_kwargs(cfg)
+    half = FEED_ENVS // 2
+    t0 = time.perf_counter()
+    pools = {"A": GeometricNavEnv(FEED_ENVS, seed=21, **kw),
+             "B": construct_geometric_envs(FEED_ENVS, seed=22,
+                                           restart_on_crash=True,
+                                           shm_obs=True, **kw),
+             "C0": construct_geometric_envs(half, seed=23,
+                                            restart_on_crash=True,
+                                            shm_obs=True, **kw),
+             "C1": construct_geometric_envs(half, seed=24,
+                                            restart_on_crash=True,
+                                            shm_obs=True, **kw)}
+    try:
+        engines = {
+            "A": RolloutEngine(cfg, agent, pools["A"], seed=0),
+            "B": RolloutEngine(cfg, agent, pools["B"], seed=0),
+            "C": PipelinedRollout([
+                RolloutEngine(cfg, agent, pools["C0"], seed=0),
+                RolloutEngine(cfg, agent, pools["C1"], seed=1)])}
+        timing = {"pools_s": time.perf_counter() - t0}
+        for c in counters.values():
+            c.reset()
+        secs = {k: [] for k in engines}
+        steps = {k: [] for k in engines}
+        recs = {}
+        with program_calls() as calls:
+            # each worker pool's first reset (the workers' first touches),
+            # then one untimed interval each
+            for k in ("B", "C0", "C1"):
+                t1 = time.perf_counter()
+                pools[k].reset()
+                timing[f"first_reset_{k}_s"] = time.perf_counter() - t1
+            for k in "ABC":
+                t1 = time.perf_counter()
+                engines[k].run("train", sample_ratio=1.0)
+                sync()
+                timing[f"warm_{k}_s"] = time.perf_counter() - t1
+            for k in "ABCCBA":
+                sync()
+                t0 = time.perf_counter()
+                rec = engines[k].run("train", sample_ratio=1.0)
+                sync()
+                secs[k].append(time.perf_counter() - t0)
+                steps[k].append(int(rec.step_valid.any(0).sum()))
+                recs[k] = rec
+            busy = {}
+            if profile:
+                for k in "ABC":
+                    t1 = time.perf_counter()
+                    rec, wall, dev, ev = profiled_busy(
+                        lambda: engines[k].run("train", sample_ratio=1.0),
+                        host_ops=False)
+                    timing[f"profiled_{k}_s"] = time.perf_counter() - t1
+                    busy[k] = {"wall_ms": wall, "device_ms": dev,
+                               "busy_share": dev / wall,
+                               "device_ops": sum(e.count for e in ev),
+                               "steps": int(rec.step_valid.any(0).sum())}
+        counts = feed_counts("(b) rollout", counters, calls)
+    finally:
+        for p in pools.values():
+            if hasattr(p, "close"):
+                p.close()
+    res = {k: {"seconds": v, "median_s": statistics.median(v),
+               "steps": steps[k]} for k, v in secs.items()}
+    res["busy"] = busy
+    res["timing"] = timing
+    res["calls"] = dict(calls)
+    res["launches"] = counts
+    log(f"feed (b) rollout s per interval, A in-process / B workers / C "
+        f"workers + 2 halves, in turns A B C C B A: {json.dumps(res)} "
+        f"[{card}]")
+    return res, recs["A"]
+
+
+def learn_batch(tr_batch, rec, T: int, G: int):
+    from etpnav_tpu_torch.training.finetune import slice_record
+    cut = slice_record(rec, T, G)
+    cut = dataclasses.replace(cut, teacher=np.where(
+        cut.teacher < G, cut.teacher, -100).astype(np.int32))
+    return tr_batch(cut)
+
+
+def loss_and_grads(planner, cfg, batch, generator=None) -> tuple:
+    from etpnav_tpu_torch.training.finetune import compute_il_loss
+    for p in planner.parameters():
+        p.grad = None
+    loss = compute_il_loss(planner, cfg, batch, generator)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in planner.named_parameters()
+             if p.grad is not None}
+    for p in planner.parameters():
+        p.grad = None
+    return loss.detach().item(), grads
+
+
+def grad_gap(got: dict, want: dict, rel: float, floor: float,
+             l2_rel: float = None, live: float = 0.0) -> dict:
+    """Worst per-tensor |got - want| against rel * max |want| + floor,
+    and with `l2_rel`, ||got - want|| against l2_rel * ||want|| for each
+    tensor whose norm is at least `live` of the largest; raises past
+    either."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradient sets differ: "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    top = max(w.norm().item() for w in want.values())
+    worst, share, name, worst_l2, name_l2 = 0.0, 0.0, None, 0.0, None
+    for n, w in want.items():
+        d = got[n] - w
+        err = d.abs().max().item()
+        tol = rel * w.abs().max().item() + floor
+        if err > tol:
+            raise AssertionError(f"gradient {n}: {err:.3g} > {tol:.3g}")
+        worst = max(worst, err)
+        if err / tol > share:
+            share, name = err / tol, n
+        norm = w.norm().item()
+        if l2_rel is not None and norm >= live * top:
+            r = d.norm().item() / norm
+            if r > l2_rel:
+                raise AssertionError(f"gradient {n}: L2 {r:.3g} > {l2_rel}")
+            if r > worst_l2:
+                worst_l2, name_l2 = r, n
+    out = {"max_abs_diff": worst, "worst_tol_share": share,
+           "worst_tensor": name, "tensors": len(want)}
+    if l2_rel is not None:
+        out.update(worst_l2_rel=worst_l2, worst_l2_tensor=name_l2)
+    return out
+
+
+def index_backward(ev) -> dict:
+    hit = [e for e in ev if "indexing_backward" in e.key]
+    return {"launches": sum(e.count for e in hit),
+            "ms": sum(e.self_device_time_total for e in hit) / 1e3}
+
+
+def learn_turns(name: str, variants: dict, planner, optimizer, generator,
+                counters, profile: bool) -> dict:
+    """Each variant's learn-step p50 in turns (forward and back, rounds
+    LEARN_ROUNDS), its peak memory, exact K-ATT / K-ATT-BWD per step, and
+    one profiled step. variants: name -> (cfg, batch, K-ATT per step,
+    K-ATT-BWD per step)."""
+    from etpnav_tpu_torch.training.finetune import learn_step
+    order = list(variants) + list(variants)[::-1]
+    ms = {k: [] for k in variants}
+    res = {}
+    for k, (c, b, fwd, bwd) in variants.items():
+        float(learn_step(planner, optimizer, c, b, generator))  # warm
+        sync()
+        free_cache()
+        reset_peak()
+        for ctr in counters.values():
+            ctr.reset()
+        float(learn_step(planner, optimizer, c, b, generator))
+        sync()
+        got = {n: ctr.value for n, ctr in counters.items() if ctr.value}
+        want = {"attention_fwd": fwd, "attention_bwd": bwd}
+        if got != want:
+            raise AssertionError(f"{name} {k}: launches per learn step "
+                                 f"{got} != {want}")
+        res[k] = {"peak_gib": peak_gib(), "launches_per_step": got}
+    for _ in range(LEARN_ROUNDS):
+        for k in order:
+            c, b, *_ = variants[k]
+            sync()
+            t0 = time.perf_counter()
+            float(learn_step(planner, optimizer, c, b, generator))
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    for k, (c, b, *_) in variants.items():
+        res[k].update(p50_ms=statistics.median(ms[k]), min_ms=min(ms[k]),
+                      n=len(ms[k]))
+        if profile:
+            _, wall, dev, ev = profiled_busy(
+                lambda: float(learn_step(planner, optimizer, c, b,
+                                         generator)))
+            res[k].update(profiled_wall_ms=wall, device_ms=dev,
+                          busy_share=dev / wall,
+                          device_ops=sum(e.count for e in ev),
+                          index_backward=index_backward(ev))
+    return res
+
+
+def learn_switches(card: str, cfg, cfg32, planner, tr_batch, rec, counters,
+                   device: str, profile: bool = True) -> dict:
+    """Stages (c) and (d) on the interval stage (b) recorded in process
+    (B = FEED_ENVS, T = 20, G = 96 at r2r_config):
+    (c) IL.agg_dense_device: the loss and every planner gradient on
+        against off in fp32 with dropout off (AGG_DENSE_REL); then the
+        learn step's p50 at (T20, G64) and (T20, G96), off and on in
+        turns, with device ms and `indexing_backward_kernel` launches and
+        ms from one profiled step of each;
+    (d) IL.remat_nav and IL.remat at (T20, G96): the gradients of each
+        checkpointed step against the memoryful step's at dropout 0.1
+        from the same generator state (REMAT_REL); then p50, peak memory
+        and K-ATT per step (19 -> 27 -> 29 at r2r_config) in turns."""
+    from etpnav_tpu_torch.training.finetune import (
+        aggregate_tokens,
+        dense_w_from_sparse,
+        make_il_optimizer,
+        record_to_batch,
+    )
+    T = rec.step_valid.shape[1]
+    G = rec.gmap_mask.shape[2]
+    il = lambda c, **kw: dataclasses.replace(  # noqa: E731
+        c, il=dataclasses.replace(c.il, **kw))
+    b_full = learn_batch(tr_batch, rec, T, G)
+    # the agent keeps its planner frozen; the optimizer opens it
+    optimizer = make_il_optimizer(cfg, planner)
+    # (c) the matrix against the CPU's, the aggregation dense against
+    # sparse, then the loss and gradients, fp32, dropout off
+    P = rec.vp_rgb.shape[2]
+    cpu_batch = record_to_batch(dataclasses.replace(
+        rec, teacher=np.where(rec.teacher < G, rec.teacher, -100)), "cpu")
+    w_err = (dense_w_from_sparse(b_full, P).cpu()
+             - dense_w_from_sparse(cpu_batch, P)).abs().max().item()
+    tokens = torch.randn(rec.step_valid.shape[0], T * P, 768,
+                         generator=torch.Generator(device).manual_seed(3),
+                         device=device)
+    with torch.no_grad():
+        agg_s = aggregate_tokens(b_full, tokens)
+        agg_d = aggregate_tokens(b_full, tokens, dense=True)
+    agg_rel = ((agg_d - agg_s).abs().max() / agg_s.abs().max()).item()
+    loss_off, g_off = loss_and_grads(planner, cfg32, b_full)
+    loss_on, g_on = loss_and_grads(planner, il(cfg32,
+                                               agg_dense_device=True),
+                                   b_full)
+    gap_c = grad_gap(g_on, g_off, AGG_DENSE_REL, 1e-6, AGG_GRAD_L2,
+                     AGG_LIVE)
+    gap_c.update(loss_rel=abs(loss_on - loss_off) / abs(loss_off),
+                 w_max_abs_diff_vs_cpu=w_err, aggregation_rel=agg_rel)
+    if not (w_err <= AGG_W_ATOL and agg_rel <= AGG_SUM_REL
+            and gap_c["loss_rel"] <= AGG_LOSS_REL):
+        raise AssertionError(f"feed (c): {gap_c}")
+    log(f"feed (c) agg_dense_device on vs off, fp32, dropout off, "
+        f"(T{T}, G{G}): loss {loss_off:.6f} / {loss_on:.6f}, "
+        f"{json.dumps(gap_c)} [{card}]")
+    del g_on, g_off
+    free_cache()
+    generator = torch.Generator(device=device).manual_seed(5)
+    n = learn_attentions(cfg, G)
+    variants = {}
+    for Gb in sorted({min(64, G), G}):
+        b = learn_batch(tr_batch, rec, T, Gb)
+        for on in (False, True):
+            variants[f"T{T}_G{Gb}/agg_dense_{'on' if on else 'off'}"] = (
+                il(cfg, agg_dense_device=on), b, n, n)
+    res_c = learn_turns("(c)", variants, planner, optimizer, generator,
+                        counters, profile)
+    log(f"feed (c) learn step, agg_dense_device off / on in turns: "
+        f"{json.dumps(res_c)} [{card}]")
+    del variants
+    free_cache()
+    # (d) gradients at dropout 0.1 from one generator state, bf16 stacks
+    cfgs = {"memoryful": cfg,
+            "remat_nav": il(cfg, remat_nav=True),
+            "remat_nav+remat": il(cfg, remat_nav=True, remat=True)}
+    g = torch.Generator(device=device).manual_seed(7)
+    state = g.get_state()
+    grads = {}
+    for k, c in list(cfgs.items()) + [("memoryful again", cfg)]:
+        g.set_state(state)
+        loss, grads[k] = loss_and_grads(planner, c, b_full, g)
+        grads[k + "/loss"] = loss
+    gap_d = {"noise_floor": grad_gap(grads["memoryful again"],
+                                     grads["memoryful"], REMAT_REL, 1e-7)}
+    for k in ("remat_nav", "remat_nav+remat"):
+        gap_d[k] = grad_gap(grads[k], grads["memoryful"], REMAT_REL, 1e-7)
+        gap_d[k]["loss"] = grads[k + "/loss"]
+    log(f"feed (d) checkpointed vs memoryful gradients, dropout 0.1, same "
+        f"generator state, (T{T}, G{G}): {json.dumps(gap_d)} [{card}]")
+    del grads
+    free_cache()
+    bwd = learn_attentions(cfg, G, recompute=False)
+    variants = {k: (c, b_full, learn_attentions(c, G), bwd)
+                for k, c in cfgs.items()}
+    res_d = learn_turns("(d)", variants, planner, optimizer, generator,
+                        counters, profile)
+    log(f"feed (d) learn step (T{T}, G{G}), remat off / remat_nav / "
+        f"remat_nav + remat in turns: {json.dumps(res_d)} [{card}]")
+    return {"agg_dense": {"grads": gap_c, "turns": res_c},
+            "remat": {"grads": gap_d, "turns": res_d}}
+
+
+def uint16_depth(card: str, cfg32, params, counters, device: str) -> dict:
+    """Stage (e): perceive (fp32 model, B = FEED_ENVS) with uint16 depth
+    against the host-dequantized depth (U16_DEQUANT_TOL) and against the
+    fp32 depth it quantizes (U16_FP32_TOL); the depth tensor that crosses
+    to the device is uint16 with half the fp32 bytes; the two uploads
+    timed; exact launch counts."""
+    from etpnav_tpu_torch.training.agent import Agent
+    agent = Agent(cfg32, params, device=device)
+    rng = np.random.default_rng(13)
+    H, Hd = cfg32.clip.image_size, cfg32.depth.input_size
+    rgb = rng.integers(0, 256, (FEED_ENVS, 12, H, H, 3), np.uint8)
+    depth = rng.random((FEED_ENVS, 12, Hd, Hd, 1), np.float32)
+    q = (np.clip(depth, 0.0, 1.0) * 65535.0 + 0.5).astype(np.uint16)
+    moved = []
+    to_dev = agent._t
+
+    def spy(x):
+        t = to_dev(x)
+        moved.append((str(t.dtype), t.numel() * t.element_size()))
+        return t
+    agent._t = spy
+    keys = ("pano_embeds", "avg_pano_embeds", "dep_fts", "heatmap")
+    for c in counters.values():
+        c.reset()
+    calls = collections.Counter()
+    out = {}
+    for name, d in (("uint16", q), ("dequantized", q / np.float32(65535.0)),
+                    ("fp32", depth)):
+        moved.clear()
+        w = agent.perceive(rgb, d)
+        calls["perceive"] += 1
+        out[name] = {k: w[k].float().cpu() for k in keys}
+        out[name + "/moved"] = list(moved)
+    del agent._t
+    counts = feed_counts("(e) uint16 depth", counters, calls)
+    gaps = {}
+    for ref, tol in (("dequantized", U16_DEQUANT_TOL),
+                     ("fp32", U16_FP32_TOL)):
+        gaps[ref] = {k: (out["uint16"][k] - out[ref][k]).abs().max().item()
+                     for k in keys}
+        bad = {k: v for k, v in gaps[ref].items() if not v <= tol}
+        if bad:
+            raise AssertionError(f"feed (e): uint16 vs {ref} {bad} > {tol}")
+    dep_u16 = [m for m in out["uint16/moved"] if m[0] == "torch.uint16"]
+    dep_f32 = [m for m in out["fp32/moved"] if m[1] == depth.nbytes]
+    if not (len(dep_u16) == 1 and dep_f32
+            and dep_u16[0][1] * 2 == dep_f32[0][1] == depth.nbytes):
+        raise AssertionError(f"feed (e): uploads {out['uint16/moved']} / "
+                             f"{out['fp32/moved']}")
+    up = {}
+    if device == "cuda":
+        for name, a in (("uint16", q), ("fp32", depth)):
+            t = torch.from_numpy(a)
+            up[name + "_upload_ms"] = cuda_ms(lambda: t.to(device),
+                                              iters=20, warmup=3)
+    res = {"max_abs_diff": gaps, "depth_bytes": {"uint16": dep_u16[0][1],
+                                                 "fp32": depth.nbytes},
+           **up, "launches": counts}
+    log(f"feed (e) uint16 depth: {json.dumps(res)} [{card}]")
+    return res
+
+
+def feed_phase(card: str, cfg, host_params, counters, tmp: str,
+               device: str = "cuda", profile: bool = True,
+               base: str = "r2r") -> dict:
+    """Phase 11 at `cfg`'s width (r2r_config on the card; `base` names
+    its preset for the runner) with seeded weights, each stage with every
+    count at 0 before it and read after: (a) `feed_training`, (b)
+    `rollout_three_ways`, (c) and (d) `learn_switches`, (e)
+    `uint16_depth`."""
+    from etpnav_tpu_torch.training.agent import Agent
+    from etpnav_tpu_torch.training.finetune import record_to_batch
+    cfg32 = dataclasses.replace(cfg, planner=dataclasses.replace(
+        cfg.planner, use_bf16=False))
+    t0 = time.perf_counter()
+    res = {"a": feed_training(card, counters, tmp, device, base)}
+    log(f"feed (a) done at {time.perf_counter() - t0:.0f} s of phase 11")
+    free_cache()
+    agent = Agent(cfg, copy.deepcopy(host_params), device=device)
+    res["b"], rec = rollout_three_ways(card, cfg, agent, counters, device,
+                                       profile)
+    log(f"feed (b) done at {time.perf_counter() - t0:.0f} s of phase 11")
+    res.update(learn_switches(
+        card, cfg, cfg32, agent.params.planner,
+        lambda r: record_to_batch(r, device), rec, counters, device,
+        profile))
+    log(f"feed (c, d) done at {time.perf_counter() - t0:.0f} s of phase 11")
+    del agent, rec
+    free_cache()
+    res["e"] = uint16_depth(card, cfg32, copy.deepcopy(host_params),
+                            counters, device)
+    # the launches of the runner's training, the three rollouts and the
+    # uint16 perceives (the learn-step measurements report theirs per step)
+    total = collections.Counter()
+    for stage in ("a", "b", "e"):
+        total.update(res[stage]["launches"])
+    res["launches"] = dict(total)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 (the IL trainer's feed): {res['seconds']:.0f} s, "
+        f"launches {json.dumps(res['launches'])} [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 # the design of the bf16 attention kernels
 TC_DESIGN = "tensor cores (mma.sync)"
@@ -2980,6 +3610,12 @@ def main() -> int:
     pt_rows = check_pretrain_attention(card, cfg)
     check_bwd_key_limits(card, {"r2r": cfg, "rxr": rxr_config()})
     log(f"phase 10 done at {time.perf_counter() - T0:.0f} s")
+    # phase 11
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="etpnav_feed_") as tmp:
+        feed = feed_phase(card, cfg, host_params, counters, tmp)
+    torch.cuda.empty_cache()
+    log(f"phase 11 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -2996,6 +3632,7 @@ def main() -> int:
         {"name": "attention_fwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_fwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_fwd", 0),
+         "launches_feed": feed["launches"].get("attention_fwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
@@ -3010,6 +3647,7 @@ def main() -> int:
          "library_kernel_ms": a["library_kernel_ms"]},
         {"name": "heatmap_nms_fused", "route": "cuda",
          "launches_runner": run_launches.get("heatmap_nms_fused", 0),
+         "launches_feed": feed["launches"].get("heatmap_nms_fused", 0),
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
          "launches": res["counts"]["heatmap_nms_fused"],
@@ -3055,6 +3693,7 @@ def main() -> int:
         {"name": "attention_bwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_bwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_bwd", 0),
+         "launches_feed": feed["launches"].get("attention_bwd", 0),
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -3147,6 +3786,16 @@ def main() -> int:
         + f"; {pt_res['per_step_attentions']} K-ATT + "
         f"{pt_res['per_step_attentions']} K-ATT-BWD per step; attention "
         f"rows {len(pt_rows)} [{card}]")
+    fb, rm = feed["b"], feed["remat"]["turns"]
+    log(f"feed: runner --workers --pipeline-halves 2 loss "
+        f"{feed['a']['IL_loss']:.4f}, crash recovered "
+        f"({feed['a']['restarts']} respawn); rollout s per interval "
+        f"in-process {fb['A']['median_s']:.3f}, workers "
+        f"{fb['B']['median_s']:.3f}, workers + 2 halves "
+        f"{fb['C']['median_s']:.3f}; K-ATT per learn step "
+        + " -> ".join(str(r["launches_per_step"]["attention_fwd"])
+                      for r in rm.values())
+        + f"; phase 11 {feed['seconds']:.0f} s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
 """Frozen dataclass configuration tree (the port's own copy).
 
-The fields that the port's serving path and IL training step read, with
-the same names, defaults and factories as `etpnav_tpu/config.py`, so a
-configuration reads the same in both packages. Switches that only the
-JAX package can act on (rematerialisation `remat`/`remat_nav`, the bf16
-attention-probs chain `attn_probs_bf16`, the dropout PRNG choices
-`rng_impl`/`dropout_bits8`, `agg_dense_device`) and the sections of the
-DAgger and device-mesh tooling are not here: each comes back with the
-slice that reads it (`config_yaml.py` refuses them). Several comments
-below record measurements taken on a TPU for the JAX package; they
-explain the defaults there and say nothing about the port's speed on a
-GPU.
+The fields that the port reads, with the same names, defaults and
+factories as `etpnav_tpu/config.py`, so a configuration reads the same in
+both packages, with one recorded difference: `IL.remat_nav` defaults to
+False here (ROADMAP §3). Switches that only the JAX package can act on
+(the `jax.checkpoint` policy `remat_policy`, the bf16 attention-probs
+chain `attn_probs_bf16`, the dropout PRNG choices
+`rng_impl`/`dropout_bits8`) and the sections of the DAgger and
+device-mesh tooling are not here (`config_yaml.py` refuses them).
+Several comments below record measurements taken on a TPU for the JAX
+package; they explain the defaults there and say nothing about the
+port's speed on a GPU.
 
 Replaces the reference's three-tier yacs config (vlnce_baselines/config/default.py,
 habitat_extensions/config/default.py, bash flag blocks) with a single immutable
@@ -72,6 +72,12 @@ class PlannerConfig:
     # runs at the smallest bucket that fits the largest live graph.
     # () = always max_gmap_len.
     gmap_len_buckets: Tuple[int, ...] = ()
+
+    # per-layer activation checkpointing of the cross-modal (navigation)
+    # layers: backward keeps each layer's (B, G, D) input and recomputes
+    # its attention internals. No effect on programs that record no
+    # gradient. The learn step turns it on through IL.remat_nav.
+    remat_scan: bool = False
 
     # compute dtype for the transformer stacks
     use_bf16: bool = True
@@ -193,6 +199,27 @@ class ILConfig:
     # record's full (max_traj_len, max_gmap_len) shape.
     train_traj_buckets: Tuple[int, ...] = ()
     train_gmap_buckets: Tuple[int, ...] = ()
+    # checkpoint the pano encoder in the learn step: backward recomputes
+    # its (B*T, P, D) activations instead of keeping them
+    remat: bool = False
+    # per-layer checkpointing of the navigation layers in the learn step's
+    # replay (PlannerConfig.remat_scan), applied only when the replayed
+    # graph axis G >= remat_nav_min_gmap. The JAX package defaults it on
+    # because its G=96 backward does not fit a v5e's memory; on the H100
+    # the (T20, G96) learn step peaks at ~10 GiB of 80, so the port
+    # defaults it off (ROADMAP §3).
+    remat_nav: bool = False
+    remat_nav_min_gmap: int = 80
+    # move depth host->device as uint16 (clip(d,0,1)*65535 rounded); the
+    # agent dequantizes on the device. Halves the depth upload bytes; the
+    # quantization error is <= 0.5/65535 on the [0,1] range.
+    depth_transport_uint16: bool = False
+    # rebuild the dense (B, T, G, T*P) aggregation matrix on the device
+    # from the sparse provenance record before the replay, so the
+    # aggregation's forward and backward are each one fp32 product
+    # instead of a gather and its index backward. W depends on record
+    # data only; no gradient flows through its construction.
+    agg_dense_device: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +314,13 @@ class ExperimentConfig:
     pretrained_path: str = ""
     # top-level run layout (iter_train.yaml NUM_ENVIRONMENTS + *_DIR keys)
     num_environments: int = 8
+    # --workers pools: respawn a crashed worker and end its episode
+    # (env/vector.py)
+    restart_crashed_workers: bool = False
+    # route the fixed-shape observation arrays of --workers pools through
+    # per-worker shared memory instead of the pickled pipe
+    # (env/shm_transport.py)
+    shm_observations: bool = False
     tensorboard_dir: str = "logs/tensorboard"
     checkpoint_folder: str = "checkpoints"
     results_dir: str = "logs/eval_results"

@@ -8,13 +8,13 @@ YAML layout:
     PRETRAIN: {optim: adamw, num_train_steps: 100000}
     CLIP: {use_fused_block: true}
 
-A TPU-only key of a ported section (IL.rng_impl, PRETRAIN.rng_impl, ...)
-is not a field here and raises KeyError like any unknown key.
+A TPU-only key of a ported section (IL.rng_impl, PLANNER.remat_policy,
+...) is not a field here and raises KeyError like any unknown key, with
+a message that says it is TPU-only.
 
 A section of the JAX package's config that the port does not have yet
-(DAGGER, MESH, and the env-worker keys) raises
-NotImplementedError naming the ROADMAP item that ports it; an unknown
-section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
+(DAGGER, MESH) raises NotImplementedError naming the ROADMAP item that
+ports it; an unknown section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
 parse YAML, so `config_from_dict` and the runner's `run_config` need no
 PyYAML.
 """
@@ -44,9 +44,11 @@ _SECTION_FIELDS = {
 _NOT_PORTED = {
     "DAGGER": "ROADMAP §1 item 8 (legacy DAgger policies)",
     "MESH": "ROADMAP §1 item 7 (distribution)",
-    "RESTART_CRASHED_WORKERS": "ROADMAP §1 item 5 (the env workers)",
-    "SHM_OBSERVATIONS": "ROADMAP §1 item 5 (the env workers)",
 }
+
+# keys of the JAX package's config that act on the TPU program only
+# (ROADMAP §1, "Not carried over")
+_TPU_ONLY = {"remat_policy", "rng_impl", "dropout_bits8", "attn_probs_bf16"}
 
 _PRESETS = {
     "r2r": C.r2r_config,
@@ -58,6 +60,11 @@ _PRESETS = {
 def _replace_section(section_obj, overrides: Dict[str, Any]):
     fields = {f.name for f in dataclasses.fields(section_obj)}
     unknown = set(overrides) - fields
+    if unknown & _TPU_ONLY:
+        raise KeyError(f"config keys {sorted(unknown & _TPU_ONLY)} of "
+                       f"{type(section_obj).__name__} act on the JAX "
+                       "package's TPU program only; the port has no such "
+                       "switch")
     if unknown:
         raise KeyError(f"unknown config keys {sorted(unknown)} for "
                        f"{type(section_obj).__name__} (the port keeps "

@@ -45,6 +45,7 @@ from etpnav_tpu_torch.ops.attention import (
 from etpnav_tpu_torch.ops.basic import (
     LayerNorm,
     Linear,
+    checkpointed,
     dropout,
     gelu_erf,
     init_weights,
@@ -258,6 +259,25 @@ def _x_layer(layer: XLayer, cfg: PlannerConfig, visn: torch.Tensor,
     return bert_ffn(layer.visn_ffn, visn, eps, **drop)
 
 
+def _x_stack(layers: nn.ModuleList, cfg: PlannerConfig, visn: torch.Tensor,
+             txt: torch.Tensor, txt_bias: torch.Tensor,
+             visn_bias: torch.Tensor, *,
+             generator: Optional[torch.Generator] = None,
+             train: bool = False) -> torch.Tensor:
+    """The cross-modal layers in turn. With `cfg.remat_scan`, each layer
+    is checkpointed: backward keeps only the (B, G, D) layer input and
+    recomputes the layer's attention internals, with the same dropout
+    draws (`checkpointed`). No effect where no gradient is recorded."""
+    for layer in layers:
+        if cfg.remat_scan:
+            visn = checkpointed(_x_layer, generator, layer, cfg, visn, txt,
+                                txt_bias, visn_bias, train=train)
+        else:
+            visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias,
+                            generator=generator, train=train)
+    return visn
+
+
 def _lang2visn_layer(layer: XLayer, cfg: PlannerConfig,
                      lang: torch.Tensor, visn: torch.Tensor,
                      lang_bias: torch.Tensor, visn_bias: torch.Tensor, *,
@@ -314,10 +334,8 @@ def forward_local(params: nn.Module, cfg: PlannerConfig,
     txt_bias = mask_to_bias(txt_masks)[:, None, None, :]
     visn_bias = mask_to_bias(masks)[:, None, None, :]
     dtype = _compute_dtype(cfg.use_bf16)
-    visn, txt = x.to(dtype), txt_embeds.to(dtype)
-    for layer in le.encoder:
-        visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias,
-                        generator=generator, train=train)
+    visn = _x_stack(le.encoder, cfg, x.to(dtype), txt_embeds.to(dtype),
+                    txt_bias, visn_bias, generator=generator, train=train)
     return visn.float()
 
 
@@ -389,10 +407,8 @@ def forward_navigation(params: PlannerParams, cfg: PlannerConfig,
     nav_bf16 = (cfg.use_bf16 if cfg.nav_use_bf16 is None
                 else cfg.nav_use_bf16)
     dtype = _compute_dtype(nav_bf16)
-    visn, txt = x.to(dtype), txt_embeds.to(dtype)
-    for layer in ge.encoder:
-        visn = _x_layer(layer, cfg, visn, txt, txt_bias, visn_bias,
-                        generator=generator, train=train)
+    visn = _x_stack(ge.encoder, cfg, x.to(dtype), txt_embeds.to(dtype),
+                    txt_bias, visn_bias, generator=generator, train=train)
     gmap_embeds = visn.float()
 
     logits = sap_head(params.global_sap_head, gmap_embeds, eps,

@@ -1,11 +1,14 @@
-"""ctypes loader for the native topological-map core (native/topo_core.cpp).
+"""ctypes loaders for the native host cores (native/topo_core.cpp,
+native/io_core.cpp).
 
-The port's own copy of the JAX package's loader, limited to what the
+The port's own copy of the JAX package's loaders, limited to what the
 port calls: the APSP edge relax and the pairwise distance assembly of
-`graph/topo_map.py`, and the exact DTW of `metrics.py`. The library
-builds lazily with make/g++ on first use and is cached next to its
-source; every entry point returns a "not available" value when it cannot
-be built, and the caller then runs its numpy version.
+`graph/topo_map.py` and the exact DTW of `metrics.py` (topo_core), and
+the parallel gather that stacks the env workers' observations into one
+host batch (io_core; `stack_arrays`). Each library builds lazily with
+make/g++ on first use and is cached next to its source; every entry
+point returns a "not available" value when it cannot be built, and the
+caller then runs its numpy version.
 """
 
 from __future__ import annotations
@@ -24,17 +27,20 @@ logger = logging.getLogger(__name__)
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
 _SO_PATH = os.path.join(_NATIVE_DIR, "libtopo_core.so")
+_IO_SO_PATH = os.path.join(_NATIVE_DIR, "libio_core.so")
 
 _lib = None
+_io_lib = None
 _lock = threading.Lock()
 _tried = False
+_io_tried = False
 
 
-def _build() -> bool:
+def _build(path: str = _SO_PATH) -> bool:
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "libtopo_core.so"],
+        subprocess.run(["make", "-C", _NATIVE_DIR, os.path.basename(path)],
                        check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
+        return os.path.exists(path)
     except (subprocess.SubprocessError, FileNotFoundError) as e:
         logger.warning("native build failed (%s); using numpy fallbacks", e)
         return False
@@ -113,3 +119,57 @@ def dtw(a: np.ndarray, b: np.ndarray) -> Optional[float]:
         raise ValueError("dtw takes (N, 3) paths")
     return float(lib.dtw(_ptr(a, ctypes.c_double), a.shape[0],
                          _ptr(b, ctypes.c_double), b.shape[0]))
+
+
+def get_io_lib() -> Optional[ctypes.CDLL]:
+    global _io_lib, _io_tried
+    with _lock:
+        if _io_lib is not None or _io_tried:
+            return _io_lib
+        _io_tried = True
+        if not os.path.exists(_IO_SO_PATH) and not _build(_IO_SO_PATH):
+            return None
+        lib = ctypes.CDLL(_IO_SO_PATH)
+        lib.gather_copy.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+        lib.gather_copy.restype = None
+        _io_lib = lib
+        return _io_lib
+
+
+def gather_copy(srcs, out: np.ndarray, nthreads: int = 0) -> bool:
+    """Parallel memcpy of the C-contiguous `srcs` into consecutive
+    segments of `out` (a flat byte buffer whose nbytes is their sum; the
+    caller owns the layout). False when the library is missing."""
+    lib = get_io_lib()
+    if lib is None:
+        return False
+    n = len(srcs)
+    ptrs = (ctypes.c_void_p * n)()
+    sizes = np.empty(n, np.int64)
+    for i, a in enumerate(srcs):
+        if not a.flags.c_contiguous:
+            raise ValueError("gather_copy sources must be C-contiguous")
+        ptrs[i] = a.ctypes.data
+        sizes[i] = a.nbytes
+    if not out.flags.c_contiguous or out.nbytes != int(sizes.sum()):
+        raise ValueError(f"gather_copy layout: out holds {out.nbytes} "
+                         f"bytes, the sources {int(sizes.sum())}")
+    lib.gather_copy(ptrs, _ptr(sizes, ctypes.c_int64),
+                    out.ctypes.data_as(ctypes.c_void_p), n, nthreads)
+    return True
+
+
+def stack_arrays(arrays, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """np.stack through the native parallel gather when it is available:
+    the rollout's batch assembly from the workers' (shared-memory)
+    observation views."""
+    a0 = arrays[0]
+    if out is None:
+        out = np.empty((len(arrays),) + a0.shape, a0.dtype)
+    srcs = [np.ascontiguousarray(a, out.dtype) for a in arrays]
+    if not gather_copy(srcs, out):
+        for i, a in enumerate(srcs):
+            out[i] = a
+    return out

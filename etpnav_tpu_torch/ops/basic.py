@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 # The reference builds additive masks as (1-m)*-10000 (common/ops.py:33).
 NEG_INF = -10000.0
@@ -138,6 +139,43 @@ def dropout(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
+
+
+def checkpointed(fn, generator: Optional[torch.Generator], *args,
+                 **kwargs):
+    """fn(*args, generator=..., **kwargs) under activation checkpointing
+    (torch.utils.checkpoint, non-reentrant): backward recomputes fn's
+    activations instead of keeping them. Runs fn plainly when no gradient
+    is recorded.
+
+    Dropout draws from the caller's own generator, which checkpoint's
+    `preserve_rng_state` does not restore, so a plain recompute would
+    draw new masks and the backward would differentiate a forward that
+    never ran. Here both the forward and the recompute draw from a
+    private generator started at the caller's state on entry, and the
+    caller's generator is then moved to where the forward left it, as
+    if fn had run without checkpointing."""
+    if not torch.is_grad_enabled():
+        return fn(*args, generator=generator, **kwargs)
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            functools.partial(fn, generator=None, **kwargs), *args,
+            use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    end = []
+
+    def run(*a):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = fn(*a, generator=g, **kwargs)
+        if not end:                    # the forward, not the recompute
+            end.append(g.get_state())
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(end[0])
+    return out
 
 
 class Linear(nn.Module):

@@ -50,9 +50,7 @@ TRAINER_REGISTRY: Dict[str, Callable] = {}
 # ROADMAP item that ports each
 NOT_PORTED = {
     "DAgger": "ROADMAP §1 item 8 (legacy DAgger policies)",
-    "--workers": "ROADMAP §1 item 5 (the env workers)",
-    "--pipeline-halves": "ROADMAP §1 item 5 (the pipelined rollout)",
-    "--video": "ROADMAP §1 item 5 (eval videos)",
+    "--video": "ROADMAP §1 item 8 (eval videos)",
     "pretrained_path directory": "a directory names a JAX (orbax) pretrain "
                                  "checkpoint, which the port does not read; "
                                  "pretrain with `--trainer Pretrain` and "
@@ -74,14 +72,27 @@ def register_trainer(name: str):
 
 @register_trainer("SS-ETP")
 def _build_ss_etp(cfg, args):
+    """The fine-tune trainer over its env pools: habitat workers when
+    habitat-sim is installed, else the geometric world, in process or
+    (`--workers`) in worker processes; `--pipeline-halves N` splits the
+    envs into N pools for the pipelined rollout."""
     from etpnav_tpu_torch.env.geometric import GeometricNavEnv
+    from etpnav_tpu_torch.env.habitat_adapter import (
+        habitat_available,
+        make_habitat_envs,
+    )
     from etpnav_tpu_torch.training.finetune import FinetuneTrainer
 
+    halves = max(args.pipeline_halves, 1)
     num_envs = args.num_envs or cfg.num_environments
     if num_envs != cfg.il.batch_size:
         logger.warning("NUM_ENVIRONMENTS %d != IL.batch_size %d: the learn "
                        "step's batch is the env pool (the reference keeps "
                        "the two equal)", num_envs, cfg.il.batch_size)
+    if num_envs % halves:
+        raise ValueError(f"--pipeline-halves {halves} does not divide "
+                         f"{num_envs} envs")
+    per_pool = num_envs // halves
     # train uses the train split, eval/infer the EVAL/INFERENCE split; the
     # geometric world has no named splits, so the split seeds disjoint
     # procedural scenes instead
@@ -90,17 +101,40 @@ def _build_ss_etp(cfg, args):
              else "train")
     split_seed = cfg.seed + (0 if split == "train"
                              else 10_000 + abs(hash_split(split)) % 10_000)
-    logger.warning("the habitat adapter is not ported yet (ROADMAP §1 "
-                   "item 5); using GeometricNavEnv")
-    envs = GeometricNavEnv(
-        num_envs=num_envs, seed=split_seed,
-        vocab_size=cfg.planner.vocab_size,
-        max_instr_len=cfg.il.max_text_len,
-        image_size=cfg.clip.image_size,
-        depth_size=cfg.depth.input_size,
-        pad_id=cfg.planner.pad_token_id)
-    return FinetuneTrainer(cfg, envs, ckpt_dir=args.ckpt_dir, seed=cfg.seed,
-                           device=args.device)
+    env_kwargs = dict(vocab_size=cfg.planner.vocab_size,
+                      max_instr_len=cfg.il.max_text_len,
+                      image_size=cfg.clip.image_size,
+                      depth_size=cfg.depth.input_size,
+                      pad_id=cfg.planner.pad_token_id)
+    use_habitat = habitat_available()
+    if not use_habitat:
+        logger.warning("habitat-sim not available; using GeometricNavEnv")
+
+    def make_pool(i):
+        if use_habitat:
+            return make_habitat_envs(cfg, num_envs=per_pool, split=split,
+                                     seed=cfg.seed + i)
+        if args.workers:
+            from etpnav_tpu_torch.env.vector import construct_geometric_envs
+            return construct_geometric_envs(
+                per_pool, workers=True, seed=split_seed + i,
+                restart_on_crash=cfg.restart_crashed_workers,
+                shm_obs=cfg.shm_observations, **env_kwargs)
+        return GeometricNavEnv(num_envs=per_pool, seed=split_seed + i,
+                               **env_kwargs)
+
+    pools = []
+    try:
+        for i in range(halves):
+            pools.append(make_pool(i))
+        return FinetuneTrainer(cfg, pools[0] if halves == 1 else pools,
+                               ckpt_dir=args.ckpt_dir, seed=cfg.seed,
+                               device=args.device)
+    except BaseException:
+        for pool in pools:
+            if hasattr(pool, "close"):
+                pool.close()
+        raise
 
 
 @register_trainer("Pretrain")
@@ -162,9 +196,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="0 = cfg NUM_ENVIRONMENTS (reference keeps "
                          "IL.batch_size equal to it)")
     ap.add_argument("--workers", action="store_true",
-                    help="multi-process env workers (not ported yet)")
+                    help="run each env in a worker process "
+                         "(env/vector.py; RESTART_CRASHED_WORKERS, "
+                         "SHM_OBSERVATIONS)")
     ap.add_argument("--pipeline-halves", type=int, default=1,
-                    help="threaded rollout pools (not ported yet; 1)")
+                    help="split the envs into N pools rolled out in "
+                         "threads (training/pipeline.py); 1 = one pool")
     ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--ckpt", default=None, help="checkpoint to load")
     ap.add_argument("--episode-count", type=int, default=-1)
@@ -213,10 +250,6 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
     if unknown:
         raise TypeError(f"unknown runner options {sorted(unknown)}")
     args = argparse.Namespace(**{**ns, **options})
-    if args.workers:
-        raise _not_ported("--workers")
-    if args.pipeline_halves > 1:
-        raise _not_ported("--pipeline-halves")
     if args.video:
         raise _not_ported("--video")
 
@@ -238,6 +271,14 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
         trainer = TRAINER_REGISTRY[args.trainer](cfg, args)
     else:
         raise _not_ported(args.trainer)
+    try:
+        return _run_trainer(trainer, cfg, args)
+    finally:
+        if hasattr(trainer, "close"):
+            trainer.close()      # the env pools' worker processes
+
+
+def _run_trainer(trainer, cfg, args):
     ckpt = args.ckpt or (cfg.inference.ckpt_path
                          if args.run_type in ("inference", "serve")
                          else None)

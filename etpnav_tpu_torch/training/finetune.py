@@ -4,8 +4,10 @@
 - The rollout (`training/rollout.py`) records one interval of frozen
   features, graph assembly and teacher actions.
 - `learn_step` replays the differentiable path over all B*T recorded
-  steps at once: text encoder, pano encoder over every step, the sparse
-  aggregation of pano tokens into graph nodes, navigation encoder;
+  steps at once: text encoder, pano encoder over every step, the
+  aggregation of pano tokens into graph nodes (from the sparse record,
+  or with IL.agg_dense_device through the dense matrix rebuilt on the
+  device), navigation encoder;
   cross-entropy against the teacher actions (ignore -100, normalised by
   the number of live steps, ss_trainer_ETP.py:892,1054-1056); backward;
   AdamW on the planner only (the reference freezes CLIP, depth and the
@@ -34,13 +36,14 @@ from etpnav_tpu_torch.config import ExperimentConfig, pick_bucket
 from etpnav_tpu_torch.device import resolve_device
 from etpnav_tpu_torch.metrics import aggregate
 from etpnav_tpu_torch.models import planner
-from etpnav_tpu_torch.ops.basic import dropout
+from etpnav_tpu_torch.ops.basic import checkpointed, dropout
 from etpnav_tpu_torch.training import checkpoints
 from etpnav_tpu_torch.training.agent import (
     Agent,
     AgentParams,
     init_agent_params,
 )
+from etpnav_tpu_torch.training.pipeline import PipelinedRollout
 from etpnav_tpu_torch.training.rollout import RolloutEngine, RolloutRecord
 from etpnav_tpu_torch.utils.logging import StepTimer, TensorboardLogger
 
@@ -53,40 +56,50 @@ _INT_FIELDS = ("txt_ids", "vp_nav", "agg_node_step", "agg_ent_slot",
                "agg_ent_tok", "gmap_step_ids", "teacher")
 
 
-def replay_logits(planner_params: planner.PlannerParams,
-                  cfg: ExperimentConfig, batch: dict,
-                  generator: Optional[torch.Generator] = None,
-                  train: bool = True) -> torch.Tensor:
-    """Differentiable replay of the rollout's decision path over all
-    recorded steps at once: txt encoder -> pano encoder -> sparse
-    aggregation -> nav encoder -> (B, T, G) logits. With train=False (or
-    no generator) and the same params this reproduces the rollout-time
-    logits, which tests assert."""
-    p = cfg.planner
-    B, T, P = batch["vp_rgb"].shape[:3]
-    G = batch["gmap_mask"].shape[2]
+@torch.no_grad()
+def dense_w_from_sparse(batch: dict, P: int) -> torch.Tensor:
+    """The dense (B, T, G, S=T*P) fp32 aggregation matrix rebuilt on the
+    batch's device from the sparse provenance record (IL.agg_dense_device).
 
-    txt = planner.forward_txt(planner_params, p, batch["txt_ids"],
-                              batch["txt_masks"], generator=generator,
-                              train=train)
-    rgb = dropout(batch["vp_rgb"], DROP_ENV, generator, train)
-    pano_embeds, _ = planner.forward_panorama(
-        planner_params, p, rgb.reshape(B * T, P, -1),
-        batch["vp_dep"].reshape(B * T, P, -1),
-        batch["vp_loc"].reshape(B * T, P, -1),
-        batch["vp_nav"].reshape(B * T, P),
-        batch["vp_mask"].reshape(B * T, P), generator=generator,
-        train=train)
-    pano_flat = pano_embeds.reshape(B, T * P, -1)
-    # zero tokens of invalid steps so aggregation only sees real data
-    step_tok_mask = batch["step_valid"].repeat_interleave(P, dim=1)
-    pano_flat = pano_flat * step_tok_mask[..., None]
+    The sparse path's math: a node slot averages its visit step's valid
+    tokens; a ghost slot sums its weighted (step, token) entries. W
+    depends on record data only, so it carries no gradient; the replay's
+    d(pano tokens) is then the transpose product instead of the gather's
+    index backward."""
+    node_step = batch["agg_node_step"]                        # (B, T, G)
+    B, T, G = node_step.shape
+    S = T * P
+    vmask = batch["vp_mask"] & batch["step_valid"][..., None]  # (B, T, P)
+    cnt = vmask.sum(-1).clamp_min(1).float()
+    shares = vmask.float() / cnt[..., None]                   # (B, T, P)
+    # W[b, t, g, u*P + p] = (node_step[b, t, g] == u) * shares[b, u, p]
+    steps = torch.arange(T, device=node_step.device)
+    node_oh = (node_step[..., None] == steps).float()         # (B,T,G,T)
+    w = (node_oh[..., None] * shares[:, None, None]).reshape(B, T, G * S)
+    # ghost entries: their share weights at (slot, token); padding
+    # entries carry val=0 and add zero at slot 0, token 0
+    flat = batch["agg_ent_slot"] * S + batch["agg_ent_tok"]   # (B, T, M)
+    w.scatter_add_(2, flat, batch["agg_ent_val"].float())
+    return w.reshape(B, T, G, S)
 
-    # sparse provenance record: node slots gather their visit-step's
-    # masked token mean; ghost slots sum weighted gathered tokens through
-    # a small one-hot product; in fp32
+
+def aggregate_tokens(batch: dict, pano_flat: torch.Tensor,
+                     dense: bool = False) -> torch.Tensor:
+    """The recorded linear aggregation of (B, T*P, D) pano tokens into
+    (B, T, G, D) graph node features, in fp32 and returned in
+    pano_flat's dtype. Sparse (the default): node slots take their visit
+    step's masked token mean, ghost slots the weighted sum of their
+    gathered (step, token) entries. `dense` (IL.agg_dense_device): one
+    product with `dense_w_from_sparse`'s matrix, whose backward is the
+    transpose product instead of the gather's index backward."""
+    B, T, G = batch["agg_node_step"].shape
+    P = pano_flat.shape[1] // T
     dt = pano_flat.dtype
     pano32 = pano_flat.float()
+    if dense:
+        w = dense_w_from_sparse(batch, P)
+        return torch.matmul(w.reshape(B, T * G, T * P), pano32) \
+            .reshape(B, T, G, -1).to(dt)
     pano_bt = pano32.reshape(B, T, P, -1)
     vmask = batch["vp_mask"] & batch["step_valid"][..., None]
     cnt = vmask.sum(-1).clamp_min(1).float()                     # (B, T)
@@ -101,7 +114,55 @@ def replay_logits(planner_params: planner.PlannerParams,
     slot_oh = (batch["agg_ent_slot"][..., None] == slots).float()
     # padding entries carry val=0, so their slot-0 one-hot adds zero
     gmap_ghost = torch.einsum("btmg,btmd->btgd", slot_oh, ent_feat)
-    gmap_img = (gmap_node + gmap_ghost).to(dt)
+    return (gmap_node + gmap_ghost).to(dt)
+
+
+def _pano_embeds(params, p, rgb, dep, loc, nav, mask, *, generator,
+                 train):
+    return planner.forward_panorama(params, p, rgb, dep, loc, nav, mask,
+                                    generator=generator, train=train)[0]
+
+
+def replay_logits(planner_params: planner.PlannerParams,
+                  cfg: ExperimentConfig, batch: dict,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = True) -> torch.Tensor:
+    """Differentiable replay of the rollout's decision path over all
+    recorded steps at once: txt encoder -> pano encoder -> aggregation
+    -> nav encoder -> (B, T, G) logits. With train=False (or no
+    generator) and the same params this reproduces the rollout-time
+    logits, which tests assert."""
+    p = cfg.planner
+    B, T, P = batch["vp_rgb"].shape[:3]
+    G = batch["gmap_mask"].shape[2]
+    if (cfg.il.remat_nav and not p.remat_scan
+            and G >= cfg.il.remat_nav_min_gmap):
+        # the large replay buckets only: the small ones fit without the
+        # recompute's cost
+        p = dataclasses.replace(p, remat_scan=True)
+
+    txt = planner.forward_txt(planner_params, p, batch["txt_ids"],
+                              batch["txt_masks"], generator=generator,
+                              train=train)
+    rgb = dropout(batch["vp_rgb"], DROP_ENV, generator, train)
+    pano_args = (planner_params, p, rgb.reshape(B * T, P, -1),
+                 batch["vp_dep"].reshape(B * T, P, -1),
+                 batch["vp_loc"].reshape(B * T, P, -1),
+                 batch["vp_nav"].reshape(B * T, P),
+                 batch["vp_mask"].reshape(B * T, P))
+    if cfg.il.remat:
+        # backward recomputes the (B*T, P, D) pano activations
+        pano_embeds = checkpointed(_pano_embeds, generator, *pano_args,
+                                   train=train)
+    else:
+        pano_embeds = _pano_embeds(*pano_args, generator=generator,
+                                   train=train)
+    pano_flat = pano_embeds.reshape(B, T * P, -1)
+    # zero tokens of invalid steps so aggregation only sees real data
+    step_tok_mask = batch["step_valid"].repeat_interleave(P, dim=1)
+    pano_flat = pano_flat * step_tok_mask[..., None]
+
+    gmap_img = aggregate_tokens(batch, pano_flat, cfg.il.agg_dense_device)
 
     # navigation encoder over all steps at once
     L = txt.shape[1]
@@ -259,7 +320,9 @@ class FinetuneTrainer:
     `device="cpu"` is passed; with no GPU and no `device="cpu"` it
     raises. With IL.is_requeue it resumes from the newest checkpoint in
     `ckpt_dir`. `tb_dir` takes tensorboard scalars (the loss each
-    iteration; phase times and the learn buckets every 50)."""
+    iteration; phase times and the learn buckets every 50). `envs` is one
+    env pool, or a list of pools for the pipelined rollout (one engine
+    per pool, seeds `seed + i`)."""
 
     def __init__(self, cfg: ExperimentConfig, envs, *,
                  params: Optional[AgentParams] = None,
@@ -277,7 +340,12 @@ class FinetuneTrainer:
         self.agent = Agent(cfg, params, device=self.device)
         self.params = self.agent.params
         self.optimizer = make_il_optimizer(cfg, self.params.planner)
-        self.engine = RolloutEngine(cfg, self.agent, envs, seed=seed)
+        if isinstance(envs, (list, tuple)):
+            self.engine = PipelinedRollout(
+                [RolloutEngine(cfg, self.agent, e, seed=seed + i)
+                 for i, e in enumerate(envs)])
+        else:
+            self.engine = RolloutEngine(cfg, self.agent, envs, seed=seed)
         # per-iteration dropout draws, on the training device
         self.generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
@@ -289,6 +357,14 @@ class FinetuneTrainer:
         self.bucket_counts: Dict[tuple, int] = {}
         if cfg.il.is_requeue:
             self.resume_latest()
+
+    def close(self):
+        """Stop the env pools' worker processes, if they have any."""
+        pools = self.envs if isinstance(self.envs, (list, tuple)) \
+            else [self.envs]
+        for e in pools:
+            if hasattr(e, "close"):
+                e.close()
 
     def resume_latest(self, ckpt_dir: Optional[str] = None) -> bool:
         """IL.is_requeue: restore the newest checkpoint incl. optimizer

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from etpnav_tpu_torch import native
 from etpnav_tpu_torch.config import ExperimentConfig, pick_bucket
 from etpnav_tpu_torch.graph.topo_map import TopoMap
 from etpnav_tpu_torch.metrics import episode_metrics
@@ -185,9 +186,16 @@ class RolloutEngine:
         prev_node = [None] * B
 
         for stepk in range(T):
-            # full pool: padding rows re-encode their last observation
-            rgb = np.stack([o["rgb"] for o in obs_full])
-            depth = np.stack([o["depth"] for o in obs_full])
+            # full pool: padding rows re-encode their last observation;
+            # the native parallel gather is the one host copy between
+            # the workers' (shared-memory) observations and the upload
+            rgb = native.stack_arrays([o["rgb"] for o in obs_full])
+            depth = native.stack_arrays([o["depth"] for o in obs_full])
+            if il.depth_transport_uint16 and depth.dtype == np.float32:
+                # half the upload bytes; the agent dequantizes on the
+                # device (agent.encode_panorama)
+                depth = (np.clip(depth, 0.0, 1.0) * 65535.0
+                         + 0.5).astype(np.uint16)
 
             # ---- waypoint + pano perception, one host fetch ----
             wp = self.agent.perceive(

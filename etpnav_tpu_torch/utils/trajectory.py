@@ -1,9 +1,20 @@
 """Trajectory helpers the port's environments read (the port's own copy
-of `ndtw_subgoal_index` from `etpnav_tpu/utils/trajectory.py`)."""
+of `ndtw_subgoal_index` and `camera_orientations_12` from
+`etpnav_tpu/utils/trajectory.py`)."""
 
 from __future__ import annotations
 
+from typing import Dict, List
+
 import numpy as np
+
+
+def camera_orientations_12() -> Dict[str, List[float]]:
+    """12 yaw orientations (rad) for the panorama camera rig, keyed like
+    the reference's sensor-uuid suffixes ('' for forward, '_1'..'_11'
+    counter-clockwise)."""
+    return {("" if i == 0 else f"_{i}"): [0.0, 2.0 * np.pi * i / 12.0, 0.0]
+            for i in range(12)}
 
 
 def ndtw_subgoal_index(within: np.ndarray, progress: int):

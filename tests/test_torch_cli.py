@@ -54,6 +54,9 @@ TINY_YAML = str(ROOT / "configs" / "r2r_tiny.yaml")
 
 # the port's form of a JAX module switch (clip_vit.USE_FUSED_BLOCK)
 PORT_ONLY = {("clip", "use_fused_block")}
+# fields whose default the port sets apart (ROADMAP §3): IL.remat_nav is
+# off, where the JAX package turns it on for a v5e's memory
+PORT_DEFAULTS = {("il", "remat_nav")}
 
 
 def assert_config_matches_jax(ours, theirs):
@@ -64,6 +67,11 @@ def assert_config_matches_jax(ours, theirs):
         if dataclasses.is_dataclass(a):
             for g in dataclasses.fields(a):
                 if (f.name, g.name) in PORT_ONLY:
+                    continue
+                if (f.name, g.name) in PORT_DEFAULTS:
+                    assert getattr(a, g.name) == getattr(type(a)(), g.name) \
+                        or getattr(a, g.name) == getattr(b, g.name), \
+                        (f.name, g.name)
                     continue
                 assert getattr(a, g.name) == getattr(b, g.name), \
                     (f.name, g.name)
@@ -76,11 +84,18 @@ def assert_config_matches_jax(ours, theirs):
 def test_yaml_configs_load_to_jax_values(name):
     path = str(ROOT / "configs" / name)
     opts = ["IL.lr=3.0e-5", "CLIP.use_fused_block=true",
-            "EVAL.split=val_seen", "PLANNER.nav_use_bf16=false"]
+            "EVAL.split=val_seen", "PLANNER.nav_use_bf16=false",
+            "IL.agg_dense_device=true", "IL.depth_transport_uint16=true",
+            "IL.remat=true", "IL.remat_nav=true", "IL.remat_nav_min_gmap=64",
+            "RESTART_CRASHED_WORKERS=true", "SHM_OBSERVATIONS=true"]
     ours = config_yaml.load_config(path, config_yaml.parse_cli_opts(opts))
     theirs = jyaml.load_config(path, jyaml.parse_cli_opts(
-        [o for o in opts if not o.startswith("CLIP.")]))
+        [o for o in opts if not o.startswith("CLIP.") and "." in o]))
+    theirs = dataclasses.replace(theirs, restart_crashed_workers=True,
+                                 shm_observations=True)
     assert ours.clip.use_fused_block is True
+    assert (ours.il.remat_nav, ours.il.remat_nav_min_gmap) == (True, 64)
+    assert ours.restart_crashed_workers and ours.shm_observations
     assert_config_matches_jax(ours, theirs)
 
 
@@ -93,11 +108,24 @@ def test_unported_sections_raise(name, item):
 def test_unknown_and_jax_only_keys_raise():
     with pytest.raises(NotImplementedError, match="item 7"):
         config_yaml.config_from_dict({"BASE": "tiny", "MESH": {"mp": 2}})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        config_yaml.config_from_dict({"SHM_OBSERVATIONS": True})
-    # a JAX-only switch the port does not read is refused, not dropped
+    # a JAX-only switch the port does not read is refused, not dropped,
+    # and the message says it is TPU-only
     with pytest.raises(KeyError, match="attn_probs_bf16"):
         config_yaml.config_from_dict({"IL": {"attn_probs_bf16": True}})
+    for section in ("PLANNER", "IL"):
+        with pytest.raises(KeyError, match="remat_policy.*TPU program"):
+            config_yaml.config_from_dict(
+                {section: {"remat_policy": "dots_saveable"}})
+    # the env-worker keys and the IL switches are ported (ROADMAP §1
+    # items 2 and 5): they load to the JAX package's values
+    keys = {"BASE": "tiny", "SHM_OBSERVATIONS": True,
+            "RESTART_CRASHED_WORKERS": True,
+            "IL": {"agg_dense_device": True, "depth_transport_uint16": True,
+                   "remat": True, "remat_nav": True,
+                   "remat_nav_min_gmap": 16},
+            "PLANNER": {"remat_scan": True}}
+    assert_config_matches_jax(config_yaml.config_from_dict(keys),
+                              jyaml.config_from_dict(keys))
     with pytest.raises(KeyError, match="NOPE"):
         config_yaml.config_from_dict({"NOPE": {}})
     with pytest.raises(KeyError, match="BASE"):
@@ -188,9 +216,7 @@ def test_run_refusals(tmp_path, monkeypatch):
         run(["--exp-config", exp, "--num-envs", "2"])
     base = ["--exp-config", exp, "--device", "cpu", "--num-envs", "2"]
     for extra, item in ((["--trainer", "DAgger"], "item 8"),
-                        (["--workers"], "item 5"),
-                        (["--pipeline-halves", "2"], "item 5"),
-                        (["--run-type", "eval", "--video"], "item 5")):
+                        (["--run-type", "eval", "--video"], "item 8")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
             run(base + extra)
     # a directory is a JAX (orbax) pretrain checkpoint: not read
@@ -201,6 +227,28 @@ def test_run_refusals(tmp_path, monkeypatch):
         run_config(tiny_config(), bogus=1)
     with pytest.raises(SystemExit):
         run(["--device", "cpu"])                  # no --exp-config
+
+
+def test_run_with_workers_and_pipeline_halves(tmp_path):
+    """`--workers --pipeline-halves 2` with the worker keys and the IL
+    switches on: 4 envs in 2 pools of 2 forkserver workers train one
+    iteration; the runner stops every worker when it returns."""
+    import multiprocessing
+
+    exp = _exp(tmp_path, "RESTART_CRASHED_WORKERS: true\n"
+                         "SHM_OBSERVATIONS: true\n")
+    ck = tmp_path / "ck"
+    logs = run(["--exp-config", exp, "--device", "cpu", "--num-envs", "4",
+                "--workers", "--pipeline-halves", "2", "--ckpt-dir", str(ck),
+                "IL.iters=1", "IL.agg_dense_device=true",
+                "IL.depth_transport_uint16=true", "IL.remat=true",
+                "IL.remat_nav=true", "IL.remat_nav_min_gmap=0"])
+    assert np.isfinite(logs["IL_loss"])
+    assert sorted(os.listdir(ck)) == ["ckpt_iter1.pt"]
+    assert multiprocessing.active_children() == []
+    with pytest.raises(ValueError, match="does not divide"):
+        run(["--exp-config", exp, "--device", "cpu", "--num-envs", "3",
+             "--pipeline-halves", "2"])
 
 
 def _tiny_pretrain_file(tmp_path):
