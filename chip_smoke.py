@@ -17,13 +17,22 @@ Phases, each reported on its own lines:
      version's, the PyTorch library call's where there is one, and the
      card's bound for the same work, and the kernels' device time alone,
      `kernel_ms`, from torch.profiler: K-ATT (bf16 on tensor cores, fp32
-     on CUDA cores) beside SDPA, and K-NMS; K-GN at every GroupNorm shape
+     on CUDA cores) beside SDPA; K-NMS's map and candidate slots bit for
+     bit against its plain version (`heatmap_nms_plain` +
+     `extract_candidates`) at B = 8, 1, 7 and in crafted cases (a peak on
+     a wrap row, underflowed probabilities, ties), its kernel_ms beside
+     the launch floor (a one-element elementwise op) and at 1 to 32 warps
+     per sample; K-GN at every GroupNorm shape
      of the fused depth trunk at B = 96 (recorded from one fused trunk
      pass on the card; two launches bit-equal; the device time summed
      over one perceive's 54 launches); the bf16 weight rounding of
      K-PRENORM and K-BLOCK bit for bit against `.to(torch.bfloat16)`;
      K-PRENORM at the CLIP shape (96, 50, 768) beside the port's unfused
-     CLIP attention half-block;
+     CLIP attention half-block; the bf16 GEMM of K-PRENORM and K-BLOCK
+     (wgmma fed by TMA) alone at N = 2304, K = 768 and M = 4800, 640,
+     10240, 12800 against its plain version, its kernel_ms beside
+     `torch.matmul` of the same shape (and at M = 4800 each tile
+     configuration);
      K-ATT with attention dropout 0.1 at the learn step's shapes, and its
      p_drop = 0 launch with the row log-sum-exp bit for bit against the
      serving launch;
@@ -38,7 +47,9 @@ Phases, each reported on its own lines:
      at least 40 steps are served; every launch count must be exactly
      what the served programs make (16 K-ATT per perceive, 8 per
      navigation scoring, 9 per instruction; 1 K-NMS per perceive; no K-GN
-     or K-PRENORM) and no plain version may be called;
+     or K-PRENORM) and no plain version may be called; the device ops
+     per perceive, beside the same perceive with the candidate slots
+     taken by the `extract_candidates` chain: fewer by that chain's ops;
   4b. the same with the fused perception configuration
      (`DepthEncoderConfig.use_fused_gn`, `ClipConfig.use_fused_block`):
      54 K-GN and 11 K-PRENORM launches per perceive, K-ATT 5 per perceive;
@@ -64,9 +75,10 @@ Phases, each reported on its own lines:
      instructions, L = 80) and the `visn_self_att` block of each of the 4
      cross-modal layers on the graph states `forward_navigation` feeds it
      (G = 96, mask + sprel bias), in the stack's dtype and in fp32, and
-     alone at (160, 64) and (64, 200); exact launch counts, each launch
-     against its plain version and against the port's unfused
-     `self_attention_block`, times beside the card's bound;
+     alone at (160, 64), (64, 200) and the ragged (7, 83); exact launch
+     counts, each launch against its plain version and against the port's
+     unfused `self_attention_block`, times beside the card's bound and
+     the bf16 time split by kernel;
   8b. the two experiment tools `tools.exp_attn_layout.main()` and
      `tools.exp_attn_pack.main()` at their CLIP shape: every variant
      within its tolerance, exact launch counts (K-ATT, K-ATT with the
@@ -161,7 +173,6 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # - bf16: 2e-2 absolute (about four bf16 ulps at magnitude 1): the kernel
 #   rounds p to bf16 at a running max (online softmax over key tiles) and
 #   the plain version at the row's global max, and both round the output.
-NMS_VALUE_TOL = 1e-6
 # K-GN and K-PRENORM in bf16: two bf16 ulps at the largest output
 # magnitude (0.0625 for outputs in [4, 8)). Kernel and plain version round
 # at the same points, but their fp32 sums (statistics, K = 768 products)
@@ -660,39 +671,135 @@ def check_attention_bwd(card: str, G: int = 96) -> dict:
     return rows
 
 
+def nms_cases(dev) -> list:
+    """(name, logits) of K-NMS's phase-3 checks: random logits at the
+    serving batch and two ragged ones, then the crafted cases of
+    tests/test_torch_nms_slots.py (a peak on a wrap row, probabilities
+    that underflow to 0 with fewer than K valid slots, exact ties)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [(f"B{B}", torch.randn(B, 120, 12, generator=g, device=dev) * 3)
+             for B in (8, 1, 7)]
+    wrap = torch.randn(2, 120, 12, generator=g, device=dev) * 0.1
+    wrap[:, 119, 0] = 9.0
+    wrap[1, 0, 9] = 8.0
+    under = torch.full((3, 120, 12), -1000.0, device=dev)
+    under[0, 50, 3] = under[1, 10, 0] = under[1, 90, 11] = 0.0
+    under[2, 0, 0] = 0.0
+    ties = torch.zeros(2, 120, 12, device=dev)
+    ties[1, 30:40] = 1.0
+    return cases + [("wrap_row_peak", wrap), ("underflow", under),
+                    ("ties", ties)]
+
+
 def check_nms(card: str) -> dict:
+    """K-NMS's map and slots bit for bit against the plain version
+    (`heatmap_nms_plain` + `extract_candidates`) on the card; times at the
+    random cases beside the launch floor (a one-element elementwise op)
+    and, at B = 8, the kernel at every block size its entry point takes."""
     from etpnav_tpu_torch.ops.fused_nms import (
+        NMS_WARPS,
+        heatmap_candidates_plain,
         heatmap_nms_fused,
-        heatmap_nms_plain,
     )
-    g = torch.Generator(device="cuda").manual_seed(1)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = kernel_ms(lambda: one.add_(1.0))
     rows = {}
-    for B in (8, 1, 7):
-        logits = torch.randn(B, 120, 12, generator=g, device="cuda") * 3
+    for name, logits in nms_cases("cuda"):
+        B = logits.shape[0]
         got = heatmap_nms_fused(logits, 5, (7.0, 5.0))
-        want = heatmap_nms_plain(logits, 5, (7.0, 5.0))
+        want = heatmap_candidates_plain(logits, 5, (7.0, 5.0))
         torch.cuda.synchronize()
-        if not torch.equal(got > 0, want > 0):
-            raise AssertionError(f"K-NMS B={B}: peak positions differ")
-        if (got > 0).sum(dim=(1, 2)).ne(5).any():
-            raise AssertionError(f"K-NMS B={B}: not 5 peaks per row")
-        err = (got - want).abs().max().item()
-        if err > NMS_VALUE_TOL:
-            raise AssertionError(f"K-NMS B={B}: max abs err {err}")
-        ms = cuda_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0)))
-        k_ms = kernel_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0)))
-        plain_ms = cuda_ms(lambda: heatmap_nms_plain(logits, 5, (7.0, 5.0)))
-        N0, N = 120 * 12, 122 * 12
-        nbytes = 4 * B * (N0 + N)
-        # softmax (max, exp, sum, divide) + 5 rounds of compare + mask
-        flops = B * (4 * N0 + 5 * 6 * N)
-        b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-        rows[f"B{B}"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
-                         "plain_ms": plain_ms, "library_ms": None,
-                         "bound_ms": b_ms, "bound_by": b_by}
-        log(f"K-NMS B={B} (B,120,12) fp32 err={err:.3g} ms={ms:.4f} "
-            f"kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.6f} ({b_by}) [{card}]")
+        for part, gt, wt in zip(("map", "angle_idx", "dist_idx", "valid"),
+                                got, want):
+            if not torch.equal(gt, wt):
+                raise AssertionError(f"K-NMS {name}: {part} differs from "
+                                     "the plain version")
+        if name.startswith("B") and (got[0] > 0).sum(dim=(1, 2)).ne(5).any():
+            raise AssertionError(f"K-NMS {name}: not 5 peaks per row")
+        row = {"max_abs_err": (got[0] - want[0]).abs().max().item(),
+               "valid_slots": int(got[3].sum())}
+        if name.startswith("B"):
+            row["ms"] = cuda_ms(lambda: heatmap_nms_fused(logits, 5,
+                                                          (7.0, 5.0)))
+            row["kernel_ms"] = kernel_ms(lambda: heatmap_nms_fused(
+                logits, 5, (7.0, 5.0)))
+            row["plain_ms"] = cuda_ms(lambda: heatmap_candidates_plain(
+                logits, 5, (7.0, 5.0)))
+            N0, N, K = 120 * 12, 122 * 12, 5
+            # logits read, the map and the slots written once
+            nbytes = 4 * B * (N0 + N) + B * K * (8 + 8 + 1)
+            # softmax (max, exp, sum, divide) + 5 rounds of compare + mask
+            flops = B * (4 * N0 + 5 * 6 * N)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                        torch.float32)
+            row["library_ms"] = None
+            row["floor_kernel_ms"] = floor_ms
+        if name == "B8":
+            row["kernel_ms_by_warps"] = {
+                w: kernel_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0),
+                                                       warps=w))
+                for w in (1, 4, 8, 16, 32)}
+        rows[name] = row
+        times = ("" if "ms" not in row else
+                 f" ms={row['ms']:.4f} kernel_ms={row['kernel_ms']:.4f} "
+                 f"(launch floor {floor_ms:.4f}) plain_ms="
+                 f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+                 f"({row['bound_by']})")
+        log(f"K-NMS {name} ({B},120,12) fp32: map and slots bit-equal, "
+            f"{row['valid_slots']} valid slots{times} [{card}]")
+    log("K-NMS B8 kernel_ms by warps per sample (default "
+        f"{NMS_WARPS}): " + ", ".join(
+            f"{w}: {t:.4f}" for w, t in
+            rows["B8"]["kernel_ms_by_warps"].items()) + f" [{card}]")
+    return rows
+
+
+def check_gemm(card: str) -> dict:
+    """The bf16 GEMM of K-PRENORM and K-BLOCK (`csrc/dense.cuh`, wgmma fed
+    by TMA) alone at the q/k/v shape (N = 2304, K = 768) and the M of
+    CLIP (4800), the text layer (640) and K-BLOCK's (160, 64) and
+    (64, 200): against its plain version (two bf16 ulps at the largest
+    output, fp32 sums in another order), its kernel_ms beside one
+    `torch.matmul` of the same shape (a yardstick the port never calls);
+    at M = 4800 every tile configuration."""
+    from etpnav_tpu_torch.ops.fused_prenorm import gemm_bf16, gemm_bf16_plain
+    g = torch.Generator(device="cuda").manual_seed(6)
+    N, K = 2304, 768
+    w = (torch.randn(N, K, generator=g, device="cuda") * 0.03).bfloat16()
+    bias = torch.randn(N, generator=g, device="cuda") * 0.1
+    rows = {}
+    for M in (4800, 640, 10240, 12800):
+        a = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        got = gemm_bf16(a, w, bias)
+        want = gemm_bf16_plain(a, w, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = bf16_tol(want)
+        if err > tol:
+            raise AssertionError(f"GEMM M={M}: max abs err {err} > {tol}")
+        k_ms = kernel_ms(lambda: gemm_bf16(a, w, bias))
+        lib_ms = kernel_ms(lambda: torch.matmul(a, w.t()))
+        flops = 2.0 * M * N * K
+        row = {"max_abs_err": err, "tol": tol, "kernel_ms": k_ms,
+               "matmul_kernel_ms": lib_ms, "ratio": k_ms / lib_ms,
+               "tflops": flops / k_ms / 1e9,
+               "matmul_tflops": flops / lib_ms / 1e9,
+               "bound_ms": bound_ms(2 * (M * K + N * K + M * N),
+                                    flops, torch.bfloat16)[0]}
+        if M == 4800:
+            row["kernel_ms_by_tile"] = {
+                t: kernel_ms(lambda: gemm_bf16(a, w, bias, tile=t))
+                for t in (1, 2, 3, 4)}
+        rows[f"M{M}"] = row
+        log(f"GEMM bf16 ({M},{K})x({K},{N}) err={err:.3g} (tol {tol:.3g}) "
+            f"kernel_ms={k_ms:.4f} ({row['tflops']:.0f} TFLOP/s) "
+            f"torch.matmul kernel_ms={lib_ms:.4f} "
+            f"({row['matmul_tflops']:.0f} TFLOP/s), {row['ratio']:.2f}x; "
+            f"bound_ms={row['bound_ms']:.4f}" + (
+                "" if M != 4800 else "; by tile " + ", ".join(
+                    f"{t}: {v:.4f}"
+                    for t, v in row["kernel_ms_by_tile"].items()))
+            + f" [{card}]")
     return rows
 
 
@@ -997,7 +1104,7 @@ def serve(card: str, cfg, params, counters) -> dict:
         counts = {name: c.value for name, c in counters.items()}
         stats = server.stats()
         del agent.perceive, agent.score_navigation, server._process
-        profile_step(card, agent, cfg)
+        ops = profile_step(card, agent, cfg)
     finally:
         server.shutdown()
     if stats["steps_served"] < target:
@@ -1010,14 +1117,58 @@ def serve(card: str, cfg, params, counters) -> dict:
            "batch_p50_ms": statistics.median(batch_ms),
            "client_step_p50_ms": statistics.median(step_ms),
            "perceive_calls": len(perceive_ms),
-           "navigation_calls": len(nav_ms), "counts": counts}
+           "navigation_calls": len(nav_ms), "counts": counts, **ops}
     log(f"slice: {json.dumps(res)} [{card}]")
     return res
 
 
-def profile_step(card: str, agent, cfg) -> None:
+def device_ops(fn) -> int:
+    """Device ops (kernels and copies) of one call of fn, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0)
+
+
+def perceive_ops(card: str, agent, rgb, dep) -> dict:
+    """Device ops per perceive with K-NMS writing the candidate slots,
+    against the same perceive with the slots taken by the
+    `extract_candidates` chain from K-NMS's map (the earlier path), and
+    that chain's own ops: the first must be the second less the third."""
+    from etpnav_tpu_torch.models import waypoint
+    from etpnav_tpu_torch.ops.nms import extract_candidates
+    fused = waypoint.heatmap_nms_fused
+
+    def with_chain(logits, k, sigma):
+        nms_map = fused(logits, k, sigma)[0]
+        return (nms_map,) + tuple(extract_candidates(nms_map[:, 1:-1], k))
+
+    ops = device_ops(lambda: agent.perceive(rgb, dep))
+    waypoint.heatmap_nms_fused = with_chain
+    try:
+        ops_chain = device_ops(lambda: agent.perceive(rgb, dep))
+    finally:
+        waypoint.heatmap_nms_fused = fused
+    nms_map = torch.rand(8, 122, 12, device="cuda")
+    chain = device_ops(lambda: extract_candidates(nms_map[:, 1:-1], 5))
+    log(f"device ops per perceive: {ops} with K-NMS's slots, {ops_chain} "
+        f"with the extract_candidates chain ({chain} ops) [{card}]")
+    if ops_chain - ops != chain:
+        raise AssertionError(f"perceive: {ops} device ops, {ops_chain} with "
+                             f"the chain of {chain}")
+    return {"perceive_ops": ops, "perceive_ops_with_chain": ops_chain,
+            "chain_ops": chain}
+
+
+def profile_step(card: str, agent, cfg) -> dict:
     """Device time by kernel for one perceive (B=8) and one navigation
-    scoring (B=8, G=64), from torch.profiler."""
+    scoring (B=8, G=64), from torch.profiler; then `perceive_ops`."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(3)
     H, Hd, D = cfg.clip.image_size, cfg.depth.input_size, cfg.planner.hidden_size
@@ -1056,6 +1207,7 @@ def profile_step(card: str, agent, cfg) -> None:
         for e in top:
             log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
                 f"x{e.count:<5d} {e.key[:90]}")
+    return perceive_ops(card, agent, rgb, dep)
 
 
 # ---------------------------------------------------------------------------
@@ -1563,7 +1715,7 @@ def check_block(card: str, cfg, planner_p, counters) -> tuple:
             cases.append((name, p, x.to(dtype), bias, eps))
     g = torch.Generator(device="cuda").manual_seed(22)
     p0 = planner_p.lang_encoder[0].attention
-    for Bx, L in ((160, 64), (64, 200)):
+    for Bx, L in ((160, 64), (64, 200), (7, 83)):
         x32 = torch.randn(Bx, L, pc.hidden_size, generator=g, device="cuda")
         keep = torch.randint(L // 3, L + 1, (Bx, 1), generator=g,
                              device="cuda")
@@ -3531,6 +3683,7 @@ def main() -> int:
     gn_rows = check_group_norm(card, gn_calls)
     check_round_bf16(card)
     pre_rows = check_prenorm(card, cfg)
+    gemm_rows = check_gemm(card)
 
     counters = {"attention_fwd": fused_attention.attention_fwd_launches,
                 "attention_plain": fused_attention.attention_plain_calls,
@@ -3654,7 +3807,13 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in nms_rows.values()),
          "ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
          "bound_by": n["bound_by"], "library_ms": None,
-         "at": "logits (8,120,12) fp32", "kernel_ms": n["kernel_ms"]},
+         "at": "logits (8,120,12) fp32 -> map and 5 candidate slots; "
+               "plain_ms is heatmap_nms_plain + extract_candidates",
+         "kernel_ms": n["kernel_ms"],
+         "floor_kernel_ms": n["floor_kernel_ms"],
+         "kernel_ms_by_warps": n["kernel_ms_by_warps"],
+         "perceive_ops": res["perceive_ops"],
+         "perceive_ops_with_chain": res["perceive_ops_with_chain"]},
         {"name": "group_norm_fused", "route": "cuda",
          "launches_runner": run_launches.get("group_norm_fused", 0),
          "source": "etpnav_tpu_torch/csrc/groupnorm.cu",
@@ -3689,7 +3848,10 @@ def main() -> int:
          "at": "x (96,50,768) bf16",
          "unfused_half_block_ms": p["unfused_half_block_ms"],
          "kernel_ms": p["kernel_ms"],
-         "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"]},
+         "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"],
+         "gemm_bf16": {k: {f: r[f] for f in ("kernel_ms", "matmul_kernel_ms",
+                                             "ratio", "tflops")}
+                       for k, r in gemm_rows.items()}},
         {"name": "attention_bwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_bwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_bwd", 0),
@@ -3724,7 +3886,7 @@ def main() -> int:
          "library_ms": None,
          "at": "text-encoder layer x (8,80,768) bf16 + key-mask bias; "
                "launches: phase 8's 9 text + 4 graph blocks in two dtypes "
-               "and (160,64), (64,200) in two",
+               "and (160,64), (64,200), (7,83) in two",
          "unfused_block_ms": kb["unfused_block_ms"],
          "kernel_ms": kb["kernel_ms"],
          "unfused_block_kernel_ms": kb["unfused_block_kernel_ms"],
@@ -3732,7 +3894,7 @@ def main() -> int:
              k.split("/")[0]: [block_rows[k]["kernel_ms"],
                                block_rows[k]["unfused_block_kernel_ms"]]
              for k in ("text0/bfloat16", "alone_160x64/bfloat16",
-                       "alone_64x200/bfloat16")}},
+                       "alone_64x200/bfloat16", "alone_7x83/bfloat16")}},
         {"name": "attention_fwd_head_out", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "tools/exp_attn_layout.py:61 bdims_attention",

@@ -27,27 +27,29 @@
 //   0. bf16 only: the four (D, D) weights rounded to bf16 once per call;
 //   1. the q/k/v projections as one GEMM with N = 3D, writing q, k, v
 //      (3, M, D), M = B*L;
-//   2. attention, one block per (sample, head), with the bias and the
-//      normalise-first rounding: in bf16 head_attention_tc_kernel (q, k, v
-//      of the head, L <= 224 rows of hd = 64, in shared memory by
-//      cp.async; each warp scores 16 whole query rows on tensor cores, so
-//      the max and the sum are the row's own), in fp32 the CUDA-core
-//      head_attention_kernel; both write ctx (M, D);
+//   2. attention with the bias and the normalise-first rounding, one
+//      block per (sample, head): in bf16 head_attention_tc_kernel (one
+//      16-row query tile per warp; Q, K and V of the head, L <= 224 rows
+//      of hd = 64, in shared memory by cp.async; each warp scores its
+//      rows over all keys on tensor cores, so the max and the sum are the
+//      row's own), in fp32 the CUDA-core head_attention_kernel; both
+//      write ctx (M, D);
 //   3. the output projection as a GEMM whose epilogue adds bo and the
 //      residual and stores the fp32 pre-norm row h (M, D);
 //   4. the row LayerNorm of h, one warp per row, rounded to x's dtype.
-// Steps 3 and 4 are two kernels, not one epilogue: a block that owned whole
-// rows (64 x 768) would leave 10 blocks for the text encoder's 640 rows on
-// 132 SMs; the fp32 h costs 8 bytes per element more of device traffic.
+// Steps 3 and 4 stay two kernels. A thread-block cluster of three blocks
+// spanning D = 768 (256 columns each, the rows' statistics exchanged
+// through distributed shared memory, h kept in the accumulators) was
+// built and was no faster than the two kernels at the text layer,
+// (160, 64) or (64, 200) on an H100 80GB HBM3 at 700 W, so it was not
+// kept.
 //
 // What bounds it: at the text encoder's shape (B = 8, L = 80, D = 768) the
 // four projections are 2*M*D*4D = 3.0 GFLOP against ~11 MB of weights and
-// activations; at the TPU note's (160, 64) and (64, 200) 48 and 60 GFLOP.
-// In bf16 the tensor cores' rate bounds it, in fp32 the CUDA cores'. The
-// bf16 GEMM is dense.cuh's multi-stage cp.async / ldmatrix / mma.sync
-// design, with 64 x 64 tiles where 128 x 128 ones would leave SMs idle
-// (the text layer's M = 640); q/k/v, ctx and h stay in device memory
-// between the kernels.
+// activations; at (160, 64) and (64, 200) 48 and 60 GFLOP. In bf16 the
+// tensor cores' rate bounds it, in fp32 the CUDA cores'. The bf16 GEMMs
+// are dense.cuh's TMA-fed wgmma design; q/k/v and ctx stay in device
+// memory between the kernels.
 
 #include "dense.cuh"
 

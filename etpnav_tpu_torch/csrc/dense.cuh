@@ -1,45 +1,47 @@
 // Dense building blocks shared by K-PRENORM (prenorm_attention.cu) and
 // K-BLOCK (attention_block.cu), for sm_90a: dtype conversions, warp
 // reductions, the tensor-core primitives (cp.async, ldmatrix, mma.sync;
-// K-ATT and K-ATT-BWD take them through attention_tc.cuh), a row
-// LayerNorm, the rounding of fp32 weights to bf16, the GEMM out = A . W^T
-// + bias (+ residual), and the attention of one (sample, head) on the
-// natural layout of the GEMM's q/k/v output. Header only; each source
-// launches the instantiations it needs. cuda_build hashes every .cuh into
-// each library's name, so an edit here rebuilds them all.
+// K-ATT and K-ATT-BWD take them through attention_tc.cuh), Hopper's
+// mbarrier, TMA and wgmma primitives, a row LayerNorm, the rounding of
+// fp32 weights to bf16, the GEMM out = A . W^T + bias (+ residual), and
+// the attention of one (sample, head) on the natural layout of the GEMM's
+// q/k/v output. Header only; each source launches the instantiations it
+// needs. cuda_build hashes every .cuh into each library's name, so an
+// edit here rebuilds them all.
 //
 // What bounds the bf16 chain: at K-PRENORM's CLIP shape (M = 4800 rows,
 // K = 768) the q/k/v GEMM (N = 2304) is 17.0 GFLOP, 0.017 ms at the
 // tensor cores' 989 TFLOP/s, and the output GEMM (N = 768, plus the
-// residual) moves 23 MB, 0.007 ms at 3.35 TB/s. A GEMM with one stage of
-// plain loads waits for every k-slab's load, and one that rounds fp32
-// weights as it loads them reads each weight once per M-tile (75 tiles,
-// ~530 MB from L2 for the q/k/v weights). So:
+// residual) moves 23 MB, 0.007 ms at 3.35 TB/s. So:
 //   - the bf16 weights are rounded once per call, by round_bf16_kernel
 //     (7 MB read, 3.5 MB written), and the GEMM copies raw bf16 tiles;
-//   - the GEMM keeps a ring of 3 k-slabs of 64 in shared memory,
-//     filled by 16-byte cp.async 2 slabs ahead of the
-//     mma.sync m16n8k16 products (fp32 accumulate), whose fragments come
-//     from ldmatrix; 128 x 128 output tiles of 8 warps where that gives
-//     at least one block per SM, else 64 x 64 tiles of 4 warps (K-BLOCK's
-//     text layer: M = 640 gives 360 and 120 blocks);
+//   - the GEMM runs on wgmma, the one instruction that reaches
+//     the tensor cores' full rate: TMA fills a ring of 3-4 k-slabs of 64
+//     in shared memory (128-byte swizzle, the layout the wgmma
+//     descriptors read), mbarriers signal each stage, one producer warp
+//     keeps the loads in flight while one or two consumer warpgroups
+//     issue m64nBNk16 products (bf16 in, fp32 accumulate) into
+//     registers; the grid is persistent. Tiles of 128 x 128, two blocks
+//     per SM, where M gives two blocks per SM, 64 x 128 where it does not
+//     (K-BLOCK's text layer, M = 640). The earlier cp.async / ldmatrix /
+//     mma.sync GEMM ran the q/k/v product at ~190 TFLOP/s against
+//     cuBLAS's ~570 (NVIDIA H100 80GB HBM3, 700 W);
 //   - the epilogue adds the fp32 bias, then the residual (in A's dtype) in
-//     fp32, and stores a pair of columns in TO: A's dtype (rounded once)
-//     or fp32 (not rounded, for a LayerNorm that follows);
-//   - the attention scores and sums on tensor cores: one warp per 16 query
-//     rows, K, V and Q of the head in shared memory as bf16 by cp.async,
-//     the softmax on the score fragments in registers (the row's own max,
-//     as in the Pallas kernels), p reused from the fragments as the A
-//     operand of p.v.
-// On an H100 SXM at 700 W (chip_smoke.py) the bf16 K-PRENORM chain takes
-// ~0.16 ms at the CLIP shape, ~0.12 ms of it in the two GEMMs (~190
-// TFLOP/s): what is left to gain is the GEMM's, by wgmma fed by TMA.
+//     fp32, and stores in TO: A's dtype (rounded once) or fp32 (not
+//     rounded, for a LayerNorm that follows), 16 bytes a lane through a
+//     small per-warp buffer in shared memory;
+//   - the attention scores and sums on tensor cores (mma.sync): one block
+//     per (sample, head), one warp per 16 query rows; K, V and Q of the
+//     head in shared memory as bf16 by cp.async; a row's scores over all
+//     keys in registers (the row's own max and sum, as in the Pallas
+//     kernels), p packed from the fragments as the A operand of p.v.
 // The fp32 launches keep CUDA-core arithmetic: 64x64 tiles over k-slabs of
 // 16, 4x4 outputs per thread, sums in k order; the attention with fp32 K
 // and V in shared memory, one warp per query row.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -265,15 +267,28 @@ struct RoundArgs {
   int n;
 };
 
+// Each thread rounds kRoundVecs float4s, their loads issued together.
+constexpr int kRoundVecs = 4;
+
 __global__ void __launch_bounds__(256)
 round_bf16_kernel(RoundArgs a, __nv_bfloat16* __restrict__ dst) {
   const float4* s = reinterpret_cast<const float4*>(a.src[blockIdx.y]);
   uint2* d = reinterpret_cast<uint2*>(
       dst + static_cast<long long>(blockIdx.y) * a.n);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n / 4;
-       i += gridDim.x * blockDim.x) {
-    const float4 v = s[i];
-    d[i] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  const int stride = gridDim.x * blockDim.x;
+  for (int i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < a.n / 4;
+       i0 += stride * kRoundVecs) {
+    float4 vs[kRoundVecs];
+#pragma unroll
+    for (int u = 0; u < kRoundVecs; ++u)
+      if (i0 + u * stride < a.n / 4) vs[u] = s[i0 + u * stride];
+#pragma unroll
+    for (int u = 0; u < kRoundVecs; ++u)
+      if (i0 + u * stride < a.n / 4) {
+        const float4 v = vs[u];
+        d[i0 + u * stride] =
+            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      }
   }
 }
 
@@ -282,7 +297,7 @@ inline int launch_round_bf16(const float* const* src, int mats, int n,
   RoundArgs a{};
   for (int i = 0; i < mats; ++i) a.src[i] = src[i];
   a.n = n;
-  const int blocks = (n / 4 + 255) / 256;
+  const int blocks = (n / 4 + 256 * kRoundVecs - 1) / (256 * kRoundVecs);
   round_bf16_kernel<<<dim3(blocks < 1024 ? blocks : 1024, mats), 256, 0,
                       st>>>(a, dst);
   return static_cast<int>(cudaGetLastError());
@@ -322,152 +337,535 @@ __device__ __forceinline__ void store_out(const GemmArgs& p, int part, int m,
       from_f<TO>(y);
 }
 
-// Columns n, n + 1 of row m of a bf16 GEMM (bias and out already those of
-// the part): the same arithmetic as store_out, one 4- or 8-byte store.
-template <typename TO>
-__device__ __forceinline__ void store_pair(const GemmArgs& p,
-                                           const float* bias, TO* out, int m,
-                                           int n, float c0, float c1) {
-  if (m >= p.M) return;
-  float y0 = __fadd_rn(c0, bias[n]), y1 = __fadd_rn(c1, bias[n + 1]);
-  const long long mn = static_cast<long long>(m) * p.n_part + n;
-  if (p.residual) {
-    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const __nv_bfloat16*>(p.residual) + mn);
-    y0 = __fadd_rn(__low2float(r), y0);
-    y1 = __fadd_rn(__high2float(r), y1);
+// The epilogue of one warp's 16 x BN accumulators d (rows m_w + grp and
+// + 8 of each n8 column tile j, columns n0 + 8 j + 2 tig and + 1: the
+// mma.sync m16n8 layout): + the fp32 bias, then + the residual (bf16) in
+// fp32, stored as TO, rows >= M skipped; bias and out are the part's. The
+// warp moves 16 columns at a time through its fp32 buffer cbuf (16 rows
+// at a pitch of kEpiPitch floats), so that each lane then reads 8
+// consecutive columns of one row and stores them as one 16-byte (bf16) or
+// two (fp32) vectors: whole sectors, where the fragment layout writes 4
+// bytes per lane across 8 rows.
+constexpr int kEpiPitch = 20;
+constexpr int kEpiFloats = 16 * kEpiPitch;   // one warp's buffer
+
+template <typename TO, int BN>
+__device__ __forceinline__ void store_rows(const GemmArgs& p,
+                                           const float* bias, TO* out,
+                                           int m_w, int n0, const float* d,
+                                           float* cbuf, int lane) {
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.residual);
+  const int grp = lane / 4, tig = lane % 4;
+  const int r = lane / 2, c = (lane % 2) * 8, m = m_w + r;
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += 2) {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = j0 + jj;
+      const float2 bv = __ldg(
+          reinterpret_cast<const float2*>(bias + n0 + j * 8 + 2 * tig));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cbuf + (grp + 8 * h) * kEpiPitch +
+                                   jj * 8 + 2 * tig) =
+            make_float2(__fadd_rn(d[4 * j + 2 * h], bv.x),
+                        __fadd_rn(d[4 * j + 2 * h + 1], bv.y));
+    }
+    __syncwarp();
+    float v[8];
+    const float4 v0 =
+        *reinterpret_cast<const float4*>(cbuf + r * kEpiPitch + c);
+    const float4 v1 =
+        *reinterpret_cast<const float4*>(cbuf + r * kEpiPitch + c + 4);
+    v[0] = v0.x; v[1] = v0.y; v[2] = v0.z; v[3] = v0.w;
+    v[4] = v1.x; v[5] = v1.y; v[6] = v1.z; v[7] = v1.w;
+    __syncwarp();                        // cbuf is rewritten next
+    if (m >= p.M) continue;
+    const long long mn =
+        static_cast<long long>(m) * p.n_part + n0 + j0 * 8 + c;
+    if (res) {
+      const uint4 rr = __ldg(reinterpret_cast<const uint4*>(res + mn));
+      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __fadd_rn(__low2float(r2[i]), v[2 * i]);
+        v[2 * i + 1] = __fadd_rn(__high2float(r2[i]), v[2 * i + 1]);
+      }
+    }
+    if constexpr (sizeof(TO) == 2) {
+      *reinterpret_cast<uint4*>(out + mn) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    } else {
+      *reinterpret_cast<float4*>(out + mn) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(out + mn + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    }
   }
-  if constexpr (sizeof(TO) == 2)
-    *reinterpret_cast<uint32_t*>(out + mn) = pack_bf16(y0, y1);
-  else
-    *reinterpret_cast<float2*>(out + mn) = make_float2(y0, y1);
 }
 
-// bf16: a ring of kGemmStages k-slabs of 64 (A: BM rows, W: BN rows, at a
-// pitch of 72 elements, 144 bytes, so the 8 rows of an ldmatrix phase fall
-// on distinct banks), filled by cp.async; warps in a (BM/WM) x (BN/WN)
-// grid, each WM x WN of (WM/16) x (WN/8) m16n8 tiles. 128 x 128 tiles
-// take 110.6 KB, so two blocks share an SM.
-constexpr int kGemmBk = 64;
-constexpr int kGemmPitch = kGemmBk + 8;
-constexpr int kGemmStages = 3;
+// ---------------------------------------------------------------------------
+// Hopper's asynchronous pieces for the bf16 GEMM: mbarriers, TMA tile
+// loads (cp.async.bulk.tensor) and warpgroup products (wgmma.mma_async).
+// ---------------------------------------------------------------------------
 
-template <int BM, int BN, int WM, int WN>
-struct GemmTile {
-  static constexpr int kWarps = (BM / WM) * (BN / WN);
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kStageElems = (BM + BN) * kGemmPitch;
-  static constexpr size_t kSmem =
-      static_cast<size_t>(kGemmStages) * kStageElems * 2;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The (c0 = column, c1 = row) box of a 2-D tensor map into shared
+// memory; its bytes complete on `bar`. Rows past the tensor's end land as
+// zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a K-major bf16 tile stored as
+// 128-byte rows in TMA's 128-byte swizzle (8-row atoms of 1024 bytes, the
+// atom's base 1024-byte aligned): start address >> 4, leading byte
+// offset 1 (unused by this layout), stride byte offset 1024 >> 4, layout
+// SWIZZLE_128B. The k-th 16-wide slice of the 64-wide slab starts 32 k
+// bytes further: + 2 k in the address field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
+  const uint64_t a = smem_u32(smem);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products (CUTLASS's warpgroup_fence_operand).
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, fp32, in registers) += A (64 x 16) . B (N x 16)^T, both
+// K-major bf16 in shared memory. Accumulator i of a thread (lane: grp =
+// lane / 4, tig = lane % 4) of warp w of the warpgroup sits at row 16 w +
+// grp + 8 ((i / 2) % 2), column 8 (i / 4) + 2 tig + i % 2: the mma.sync
+// m16n8 fragment repeated over N / 8 column tiles.
+__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == 64) wgmma_m64n64(d, da, db);
+  else if constexpr (N == 128) wgmma_m64n128(d, da, db);
+  else wgmma_m64n256(d, da, db);
+}
+
+// bf16: a ring of STAGES k-slabs of 64 (one 128-byte swizzle row of bf16
+// per tile row: A BM x 64, W BN x 64), filled by TMA and consumed by
+// wgmma. One producer warp (one thread of it) keeps the loads in flight:
+// it waits for a stage's `empty` barrier, announces the stage's bytes on
+// its `full` barrier and issues the tile loads. BM / 64 consumer
+// warpgroups each own 64 rows x BN columns of fp32 accumulators: they
+// wait for `full`, issue the slab's four m64nBNk16 products, commit, and
+// once the previous slab's products are done (wait_group 1) release that
+// slab's stage on `empty`. The epilogue is store_rows's from the
+// accumulator registers. The grid is persistent (at most MIN_BLOCKS
+// blocks per SM, each walking over output tiles), so one tile's epilogue
+// runs while the producer already loads the next tile's slabs.
+
+constexpr int kWgBk = 64;
+constexpr int kSms = 132;                // an H100 SXM's SMs
+
+template <int BM, int BN, int STAGES>
+struct WgTile {
+  static constexpr int kConsumers = BM / 64;         // warpgroups
+  static constexpr int kThreads = kConsumers * 128 + 32;
+  static constexpr int kABytes = BM * kWgBk * 2;
+  static constexpr int kStageBytes = (BM + BN) * kWgBk * 2;
+  // the stages, each consumer warp's epilogue buffer, alignment slack
+  static constexpr size_t kSmem = static_cast<size_t>(STAGES) * kStageBytes +
+                                  kConsumers * 4 * kEpiFloats * 4 + 1024;
 };
 
-template <typename TO, int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(GemmTile<BM, BN, WM, WN>::kThreads)
-gemm_bf16_kernel(GemmArgs p) {
-  using Tile = GemmTile<BM, BN, WM, WN>;
-  constexpr int MI = WM / 16, NI = WN / 8, kChunks = kGemmBk / 8;
-  extern __shared__ __align__(16) unsigned char gemm_smem[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(gemm_smem);
-  const int m0 = blockIdx.x * BM;
-  const int part = (blockIdx.y * BN) / p.n_part;
-  const int n0 = (blockIdx.y * BN) % p.n_part;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* W =
-      static_cast<const __nv_bfloat16*>(pick3(p.w, part)) +
-      static_cast<long long>(n0) * p.K;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / (BN / WN)) * WM, wn = (warp % (BN / WN)) * WN;
-  const int grp = lane / 4, tig = lane % 4;
-  const int KT = p.K / kGemmBk;
-
-  auto load_stage = [&](int stage, int kt) {
-    __nv_bfloat16* As = sm + stage * Tile::kStageElems;
-    __nv_bfloat16* Bs = As + BM * kGemmPitch;
-    const int k0 = kt * kGemmBk;
-    for (int c = tid; c < BM * kChunks; c += Tile::kThreads) {
-      const int r = c / kChunks, kc = (c % kChunks) * 8;
-      const bool ok = m0 + r < p.M;
-      cp_async16_zfill(
-          As + r * kGemmPitch + kc,
-          A + static_cast<long long>(ok ? m0 + r : 0) * p.K + k0 + kc, ok);
-    }
-    for (int c = tid; c < BN * kChunks; c += Tile::kThreads) {
-      const int r = c / kChunks, kc = (c % kChunks) * 8;
-      cp_async16(Bs + r * kGemmPitch + kc,
-                 W + static_cast<long long>(r) * p.K + k0 + kc);
-    }
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+// The producer's loads of the KT slabs of one tile (A rows from m0, W rows
+// from w_row0); `it` counts slabs over all of the block's tiles.
+template <int BM, int BN, int STAGES>
+__device__ __forceinline__ void produce_tile(const CUtensorMap* tm_a,
+                                             const CUtensorMap* tm_w,
+                                             unsigned char* base,
+                                             uint64_t* full, uint64_t* empty,
+                                             int m0, int w_row0, int KT,
+                                             int& it) {
+  using Tile = WgTile<BM, BN, STAGES>;
+  for (int kt = 0; kt < KT; ++kt, ++it) {
+    const int s = it % STAGES;
+    if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+    unsigned char* st = base + s * Tile::kStageBytes;
+    mbar_expect_tx(&full[s], Tile::kStageBytes);
+    tma_load_2d(st, tm_a, &full[s], kt * kWgBk, m0);
+    tma_load_2d(st + Tile::kABytes, tm_w, &full[s], kt * kWgBk, w_row0);
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kGemmStages - 2>();    // slab kt has landed
-    __syncthreads();                     // ... for every thread, and slab
-                                         // kt - 1's stage is free again
-    const int next = kt + kGemmStages - 1;
-    if (next < KT) load_stage(next % kGemmStages, next);
-    cp_async_commit();
-    const __nv_bfloat16* As = sm + (kt % kGemmStages) * Tile::kStageElems;
-    const __nv_bfloat16* Bs = As + BM * kGemmPitch;
-#pragma unroll
-    for (int kk = 0; kk < kGemmBk; kk += 16) {
-      uint32_t af[MI][4], bfr[NI / 2][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        load_a(af[i], As, kGemmPitch, wm + i * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NI / 2; ++j)
-        load_b_nt(bfr[j], Bs, kGemmPitch, wn + j * 16, kk, lane);
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI / 2; ++j) {
-          mma_bf16(acc[i][2 * j], af[i], bfr[j]);
-          mma_bf16(acc[i][2 * j + 1], af[i], bfr[j] + 2);
-        }
-    }
-  }
-  const float* bias = pick3(p.bias, part);
-  TO* out = static_cast<TO*>(p.out) + static_cast<long long>(part) * p.M *
-                                          p.n_part;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int m = m0 + wm + i * 16 + grp;
-      const int n = n0 + wn + j * 8 + tig * 2;
-      store_pair<TO>(p, bias, out, m, n, acc[i][j][0], acc[i][j][1]);
-      store_pair<TO>(p, bias, out, m + 8, n, acc[i][j][2], acc[i][j][3]);
-    }
 }
 
-template <typename TO, int BM, int BN, int WM, int WN>
-int launch_gemm_bf16(const GemmArgs& p, int parts, cudaStream_t st) {
-  using Tile = GemmTile<BM, BN, WM, WN>;
-  auto kernel = gemm_bf16_kernel<TO, BM, BN, WM, WN>;
-  if constexpr (Tile::kSmem > 48 * 1024) {
-    // every launch: a function-local static would be one object across
-    // the libraries that include this header (a unique global symbol),
-    // and only the first library's kernel would get the attribute
-    const int err = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tile::kSmem)));
-    if (err) return err;
+// A consumer warpgroup's products of one tile into d (64 rows from wg *
+// 64, BN columns), each slab's stage released once its products are done.
+template <int BM, int BN, int STAGES>
+__device__ __forceinline__ void consume_tile(float* d,
+                                             const unsigned char* base,
+                                             uint64_t* full, uint64_t* empty,
+                                             int KT, int& it, int wg,
+                                             bool leader) {
+  using Tile = WgTile<BM, BN, STAGES>;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt, ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* st = base + s * Tile::kStageBytes;
+    const uint64_t da = sw128_desc(st + wg * 64 * 128);
+    const uint64_t db = sw128_desc(st + Tile::kABytes);
+    fence_acc<BN / 2>(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBk / 16; ++kk)
+      wgmma_tile<BN>(d, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();                     // slab it - 1's products are done
+    fence_acc<BN / 2>(d);
+    if (kt > 0 && leader) mbar_arrive(&empty[(it - 1) % STAGES]);
   }
-  const dim3 grid((p.M + BM - 1) / BM, parts * p.n_part / BN);
-  kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(p);
+  wgmma_wait<0>();
+  fence_acc<BN / 2>(d);
+  if (leader) mbar_arrive(&empty[(it - 1) % STAGES]);
+}
+
+// The ring's barriers, initialised by thread 0: `full` takes the
+// producer's arrival and the TMA bytes, `empty` one arrival per consumer
+// warpgroup. The caller then syncs the block.
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          int consumers) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// the swizzle atoms need a 1024-byte aligned base
+__device__ __forceinline__ unsigned char* ring_base(unsigned char* smem) {
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
+template <typename TO, int BM, int BN, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::kThreads,
+                                  MIN_BLOCKS)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_w, GemmArgs p,
+                 int n_tiles) {
+  using Tile = WgTile<BM, BN, STAGES>;
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  unsigned char* base = ring_base(gemm_smem);
+  const int m_tiles = (p.M + BM - 1) / BM;
+  const int tiles = m_tiles * n_tiles;
+  const int KT = p.K / kWgBk;
+  const int tid = threadIdx.x;
+  init_ring<STAGES>(full, empty, Tile::kConsumers);
+  __syncthreads();
+
+  // Persistent: block c takes tiles c, c + gridDim.x, ... (M fastest, so
+  // neighbouring blocks share a W tile in L2); `it` counts k-slabs over
+  // all of a block's tiles, so stage and phase run on across tiles and the
+  // producer loads the next tile while the consumers store this one.
+  int it = 0;
+  if (tid >= Tile::kConsumers * 128) {   // the producer warp
+    if (tid == Tile::kConsumers * 128)
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        produce_tile<BM, BN, STAGES>(&tm_a, &tm_w, base, full, empty,
+                                     (t % m_tiles) * BM, (t / m_tiles) * BN,
+                                     KT, it);
+    return;
+  }
+  const int wg = tid / 128, lane = tid % 32;
+  float* cbuf = reinterpret_cast<float*>(base + STAGES * Tile::kStageBytes) +
+                (tid / 32) * kEpiFloats;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % m_tiles) * BM, w_row0 = (t / m_tiles) * BN;
+    float d[BN / 2];
+    consume_tile<BM, BN, STAGES>(d, base, full, empty, KT, it, wg,
+                                 tid % 128 == 0);
+    const int part = w_row0 / p.n_part, n0 = w_row0 % p.n_part;
+    TO* out = static_cast<TO*>(p.out) +
+              static_cast<long long>(part) * p.M * p.n_part;
+    store_rows<TO, BN>(p, pick3(p.bias, part), out,
+                       m0 + wg * 64 + ((tid % 128) / 32) * 16, n0, d, cbuf,
+                       lane);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// libraries link no libcuda); null if the driver has none.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// What a GEMM launch returns when the driver cannot encode a tensor map.
+constexpr int kErrTensorMap = -3;
+
+// The map of a row-major (rows, K) bf16 matrix, read in boxes of
+// box_rows x 64 with the 128-byte swizzle; out-of-range rows read zeros.
+inline int encode_rows(CUtensorMap* map, const void* ptr, int rows, int K,
+                       int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return kErrTensorMap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t box[2] = {kWgBk, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <typename TO, int BM, int BN, int STAGES, int MIN_BLOCKS>
+int launch_gemm_bf16(const GemmArgs& p, int parts, cudaStream_t st) {
+  using Tile = WgTile<BM, BN, STAGES>;
+  CUtensorMap tm_a, tm_w;
+  int err = encode_rows(&tm_a, p.a, p.M, p.K, BM);
+  if (!err) err = encode_rows(&tm_w, p.w[0], parts * p.n_part, p.K, BN);
+  if (err) return err;
+  auto kernel = gemm_bf16_kernel<TO, BM, BN, STAGES, MIN_BLOCKS>;
+  // every launch: a function-local static would be one object across the
+  // libraries that include this header (a unique global symbol), and only
+  // the first library's kernel would get the attribute
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Tile::kSmem)));
+  if (err) return err;
+  const int n_tiles = parts * p.n_part / BN;
+  const int tiles = (p.M + BM - 1) / BM * n_tiles;
+  const int grid = tiles < kSms * MIN_BLOCKS ? tiles : kSms * MIN_BLOCKS;
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(tm_a, tm_w, p, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 tile configurations, by index (0 picks by shape): BM x BN,
+// stages, blocks per SM.
+//   1: 128 x 128, 3 stages (107 KB), 2 blocks per SM, where M gives two
+//      blocks per SM;
+//   2: 64 x 128, 4 stages (102 KB), 2 blocks per SM, where it does not
+//      (K-BLOCK's text layer, M = 640);
+//   3: 64 x 64, 4 stages (70 KB), 3 blocks per SM, for n_part % 128 != 0;
+//   4: 128 x 256, 4 stages (203 KB), 1 block per SM: the fastest at K =
+//      3072, slower than 1 at the port's K = 768, where a tile's epilogue
+//      and pipeline fill weigh more. chip_smoke.py measures all four.
+constexpr int kGemmTiles = 4;
+
+inline int pick_gemm_tile(int M, int n_total, int n_part) {
+  const long long mt128 = (M + 127) / 128;
+  if (n_part % 128 == 0 && mt128 * (n_total / 128) >= 2 * kSms) return 1;
+  return n_part % 128 == 0 ? 2 : 3;
+}
+
+// The output columns BN of tile configuration `tile`.
+inline int tile_bn(int tile) {
+  return tile == 4 ? 256 : (tile == 3 ? 64 : 128);
+}
+
+template <typename TO>
+int launch_gemm_bf16_tile(const GemmArgs& p, int parts, int tile,
+                          cudaStream_t st) {
+  if (tile == 0) tile = pick_gemm_tile(p.M, parts * p.n_part, p.n_part);
+  if (tile < 1 || tile > kGemmTiles || p.n_part % tile_bn(tile) != 0)
+    return -1;
+  // the parts' weights are one (parts * n_part, K) matrix
+  for (int i = 1; i < parts; ++i)
+    if (p.w[i] != static_cast<const __nv_bfloat16*>(p.w[0]) +
+                      static_cast<long long>(i) * p.n_part * p.K)
+      return -1;
+  if (reinterpret_cast<uintptr_t>(p.a) % 16 ||
+      reinterpret_cast<uintptr_t>(p.w[0]) % 16)
+    return -2;  // etp::kErrMisaligned: TMA needs 16-byte aligned bases
+  for (int i = 0; i < parts; ++i)
+    if (reinterpret_cast<uintptr_t>(p.bias[i]) % 8) return -2;
+  if (reinterpret_cast<uintptr_t>(p.residual) % 16 ||
+      reinterpret_cast<uintptr_t>(p.out) % 16)
+    return -2;                           // the epilogue's 16-byte vectors
+  switch (tile) {
+    case 1: return launch_gemm_bf16<TO, 128, 128, 3, 2>(p, parts, st);
+    case 2: return launch_gemm_bf16<TO, 64, 128, 4, 2>(p, parts, st);
+    case 3: return launch_gemm_bf16<TO, 64, 64, 4, 3>(p, parts, st);
+    default: return launch_gemm_bf16<TO, 128, 256, 4, 1>(p, parts, st);
+  }
 }
 
 // fp32: CUDA-core FMAs; 256 threads in a 16x16 grid, 4x4 outputs each.
@@ -535,12 +933,7 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs p) {
 template <typename TA, typename TO>
 int launch_gemm(const GemmArgs& p, int parts, cudaStream_t st) {
   if constexpr (sizeof(TA) == 2) {
-    constexpr int kSms = 132;
-    const long long blocks128 =
-        static_cast<long long>((p.M + 127) / 128) * (parts * p.n_part / 128);
-    if (p.n_part % 128 == 0 && blocks128 >= kSms)
-      return launch_gemm_bf16<TO, 128, 128, 32, 64>(p, parts, st);
-    return launch_gemm_bf16<TO, 64, 64, 32, 32>(p, parts, st);
+    return launch_gemm_bf16_tile<TO>(p, parts, 0, st);
   } else {
     const dim3 grid((p.M + kTile - 1) / kTile, parts * p.n_part / kTile);
     gemm_f32_kernel<TO><<<grid, 256, 0, st>>>(p);
@@ -652,29 +1045,58 @@ head_attention_kernel(const T* __restrict__ qkv,
   }
 }
 
-// bf16 on tensor cores: one block per (sample, head), up to 8 warps; warp
-// w takes the 16-row query tiles w, w + 8, ... Q, K and V of the head (Lp =
-// L rounded up to 16 rows; rows >= L zero) sit in shared memory at pitch
-// kTcPitch. The scores of a warp's 16 rows over all Lp keys stay in the
-// m16n8 accumulators (NT 16-key tiles, L <= 16 * NT), so the max and the sum
-// are the row's own; keys >= L score -inf. p = exp(l - max) in fp32; the sum
-// adds the fp32 p; p is rounded to bf16 (after the division by the sum
-// when NORM_FIRST) as the A operand of p.v, and the fp32 sum of p.v is
-// divided last otherwise, then rounded.
-constexpr int kAttnTcWarps = 8;
+// bf16 on tensor cores: one block per (sample, head) and one warp per
+// 16-row query tile (nt = Lp / 16 warps, Lp = L rounded up to 16), so
+// every warp carries one tile and the head's K and V are copied once (an
+// earlier design gave 8 warps 13 tiles at L = 200, 5 of them two). The
+// block copies K, V and Q (rows >= L zero) into shared memory by
+// cp.async, at pitch kTcPitch, and the bias as fp32: one row for a key
+// mask, else its rows where they fit two blocks per SM, else the bias is
+// read where it lies. A warp's scores of its 16 rows over all Lp keys
+// stay in the m16n8 accumulators (NT 16-key tiles, L <= 16 NT; NT is
+// the smallest of 4, 6, 8, 13, 14 that holds L, so that 13 warps of ~150
+// registers at L = 200 fit one SM), so the max and the sum are the row's
+// own (keys >= L score -inf). p = exp(l - max) in fp32; the sum adds the
+// fp32 p; p is rounded to bf16 (after the division by the sum when
+// NORM_FIRST) into packed A operands before the p.v accumulators start;
+// the fp32 sum of p.v is divided last otherwise, then rounded.
+constexpr size_t kAttnSmemPerBlock = 113 * 1024;   // two blocks per SM
+
+// The rows of fp32 bias a block stages in shared memory: 0 (none, or read
+// where it lies), 1 (a bias the same for every row) or Lp.
+inline int attn_bias_rows(const float* bias, long long sbq, int Lp) {
+  if (!bias) return 0;
+  if (sbq == 0) return 1;
+  const size_t kv = (3 * static_cast<size_t>(Lp)) * kTcPitch * 2;
+  return kv + static_cast<size_t>(Lp) * Lp * 4 <= kAttnSmemPerBlock ? Lp
+                                                                     : 0;
+}
+
+// p / s rounded to nearest even for 0 <= p <= 1 <= s (a probability over
+// its row's sum), through the row's correctly rounded reciprocal y = 1/s:
+// q0 = RN(p y), then RN(q0 + RN(p - s q0) y), which is the correctly
+// rounded quotient while p - s q0 does not underflow (Markstein's
+// correction); p below 2^-100 takes __fdiv_rn. Three instructions in
+// place of __fdiv_rn's reciprocal refinement and range check per element.
+__device__ __forceinline__ float div_by_row_sum(float p, float s, float y) {
+  if (p < 0x1p-100f) return p == 0.f ? 0.f : __fdiv_rn(p, s);
+  const float q0 = __fmul_rn(p, y);
+  return __fmaf_rn(__fmaf_rn(-q0, s, p), y, q0);
+}
 
 template <int NT, bool NORM_FIRST>
-__global__ void __launch_bounds__(kAttnTcWarps * 32)
+__global__ void __launch_bounds__(NT * 32, NT >= 13 ? 1 : 2)
 head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                          const float* __restrict__ bias, long long sbb,
-                         long long sbq, long long sbk,
+                         long long sbq, long long sbk, int bias_rows,
                          __nv_bfloat16* __restrict__ ctx, int M, int L,
                          int D, int H, float scale) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int Lp = (L + 15) & ~15, nt = Lp / 16;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(attn_smem);
-  __nv_bfloat16* ks = qs + Lp * kTcPitch;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(attn_smem);
   __nv_bfloat16* vs = ks + Lp * kTcPitch;
+  __nv_bfloat16* qs = vs + Lp * kTcPitch;
+  float* bs = reinterpret_cast<float*>(qs + Lp * kTcPitch);
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const long long plane = static_cast<long long>(M) * D;
   const long long row0 = static_cast<long long>(b) * L;
@@ -689,109 +1111,127 @@ head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     cp_async16_zfill(ks + r * kTcPitch + dc, qkv + plane + o, ok);
     cp_async16_zfill(vs + r * kTcPitch + dc, qkv + 2 * plane + o, ok);
   }
+  for (int c = threadIdx.x; c < bias_rows * Lp; c += blockDim.x) {
+    const int r = c / Lp, j = c % Lp;
+    bs[c] = r < L && j < L ? bias[b * sbb + r * sbq + j * sbk] : 0.f;
+  }
   cp_async_wait_all();
   __syncthreads();
+  const int q0 = warp * 16;
+  // the bias of the warp's rows at element strides (sr, sc): staged, or
+  // where it lies
+  const float* bw = nullptr;
+  int sr = 0, sc = 1;
+  if (bias_rows == 1) {
+    bw = bs;
+  } else if (bias_rows > 1) {
+    bw = bs + q0 * Lp;
+    sr = Lp;
+  } else if (bias) {
+    bw = bias + b * sbb + q0 * sbq;
+    sr = static_cast<int>(sbq);
+    sc = static_cast<int>(sbk);
+  }
 
-  for (int qt = warp; qt < nt; qt += blockDim.x / 32) {
-    const int q0 = qt * 16;
-    uint32_t qf[kTcHd / 16][4];
+  uint32_t qf[kTcHd / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kTcHd / 16; ++kk)
-      load_a(qf[kk], qs, kTcPitch, q0, kk * 16, lane);
-
-    float s[2 * NT][4];
+  for (int kk = 0; kk < kTcHd / 16; ++kk)
+    load_a(qf[kk], qs, kTcPitch, q0, kk * 16, lane);
+  float s[2 * NT][4];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
+  for (int t = 0; t < NT; ++t) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[2 * t][e] = s[2 * t + 1][e] = 0.f;
-      if (t < nt) {
+    for (int e = 0; e < 4; ++e) s[2 * t][e] = s[2 * t + 1][e] = 0.f;
+    if (t < nt) {
 #pragma unroll
-        for (int kk = 0; kk < kTcHd / 16; ++kk) {
-          uint32_t bf[4];
-          load_b_nt(bf, ks, kTcPitch, t * 16, kk * 16, lane);
-          mma_bf16(s[2 * t], qf[kk], bf);
-          mma_bf16(s[2 * t + 1], qf[kk], bf + 2);
-        }
+      for (int kk = 0; kk < kTcHd / 16; ++kk) {
+        uint32_t bf[4];
+        load_b_nt(bf, ks, kTcPitch, t * 16, kk * 16, lane);
+        mma_bf16(s[2 * t], qf[kk], bf);
+        mma_bf16(s[2 * t + 1], qf[kk], bf + 2);
       }
     }
+  }
 
-    // logits, the row's max: e < 2 is row q0 + grp, e >= 2 row + 8
-    float mx[2] = {-INFINITY, -INFINITY};
+  // logits, the row's max: e < 2 is row q0 + grp, e >= 2 row + 8 (rows >=
+  // L are computed, take no bias and are not stored)
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = grp + (e >> 1) * 8;
+      const int j = t8 * 8 + 2 * tig + (e & 1);
+      float v = -INFINITY;
+      if (j < L) {
+        v = __fmul_rn(s[t8][e], scale);
+        if (bw && q0 + r < L) v = __fadd_rn(v, bw[r * sr + j * sc]);
+      }
+      s[t8][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+  }
+#pragma unroll
+  for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = t8 * 8 + 2 * tig + (e & 1);
+      const float pe = j < L ? expf(__fsub_rn(s[t8][e], mx[e >> 1])) : 0.f;
+      s[t8][e] = pe;
+      sum[e >> 1] += pe;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
+    sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
+  }
+  if (NORM_FIRST) {
+    const float y[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
 #pragma unroll
     for (int t8 = 0; t8 < 2 * NT; ++t8)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + grp + (e >> 1) * 8;
-        const int j = t8 * 8 + 2 * tig + (e & 1);
-        float v = -INFINITY;
-        if (j < L) {
-          v = __fmul_rn(s[t8][e], scale);
-          if (bias && r < L) v = __fadd_rn(v, bias[b * sbb + r * sbq + j * sbk]);
-        }
-        s[t8][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float sum[2] = {0.f, 0.f};
+      for (int e = 0; e < 4; ++e)
+        s[t8][e] = div_by_row_sum(s[t8][e], sum[e >> 1], y[e >> 1]);
+  }
+  uint32_t pa[NT][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-    }
-#pragma unroll
-    for (int t8 = 0; t8 < 2 * NT; ++t8)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = t8 * 8 + 2 * tig + (e & 1);
-        const float pe = j < L ? expf(__fsub_rn(s[t8][e], mx[e >> 1])) : 0.f;
-        s[t8][e] = pe;
-        sum[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
-      sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
-    }
-    if (NORM_FIRST) {
-#pragma unroll
-      for (int t8 = 0; t8 < 2 * NT; ++t8)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[t8][e] = __fdiv_rn(s[t8][e], sum[e >> 1]);
-    }
+  for (int t = 0; t < NT; ++t) acc_to_a(pa[t], s[2 * t], s[2 * t + 1]);
 
-    float o[kTcHd / 8][4];
+  float o[kTcHd / 8][4];
 #pragma unroll
-    for (int d8 = 0; d8 < kTcHd / 8; ++d8)
+  for (int d8 = 0; d8 < kTcHd / 8; ++d8)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[d8][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[d8][e] = 0.f;
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t < nt) {
-        uint32_t pa[4];
-        acc_to_a(pa, s[2 * t], s[2 * t + 1]);
+  for (int t = 0; t < NT; ++t) {
+    if (t < nt) {
 #pragma unroll
-        for (int d16 = 0; d16 < kTcHd / 16; ++d16) {
-          uint32_t bf[4];
-          load_b_nn(bf, vs, kTcPitch, t * 16, d16 * 16, lane);
-          mma_bf16(o[2 * d16], pa, bf);
-          mma_bf16(o[2 * d16 + 1], pa, bf + 2);
-        }
+      for (int d16 = 0; d16 < kTcHd / 16; ++d16) {
+        uint32_t bf[4];
+        load_b_nn(bf, vs, kTcPitch, t * 16, d16 * 16, lane);
+        mma_bf16(o[2 * d16], pa[t], bf);
+        mma_bf16(o[2 * d16 + 1], pa[t], bf + 2);
       }
     }
+  }
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = q0 + grp + half * 8;
-      if (r >= L) continue;
-      __nv_bfloat16* cr = ctx + (row0 + r) * D + h * kTcHd + 2 * tig;
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + grp + half * 8;
+    if (r >= L) continue;
+    __nv_bfloat16* cr = ctx + (row0 + r) * D + h * kTcHd + 2 * tig;
 #pragma unroll
-      for (int d8 = 0; d8 < kTcHd / 8; ++d8) {
-        float y0 = o[d8][2 * half], y1 = o[d8][2 * half + 1];
-        if (!NORM_FIRST) {
-          y0 = __fdiv_rn(y0, sum[half]);
-          y1 = __fdiv_rn(y1, sum[half]);
-        }
-        *reinterpret_cast<uint32_t*>(cr + d8 * 8) = pack_bf16(y0, y1);
+    for (int d8 = 0; d8 < kTcHd / 8; ++d8) {
+      float y0 = o[d8][2 * half], y1 = o[d8][2 * half + 1];
+      if (!NORM_FIRST) {
+        y0 = __fdiv_rn(y0, sum[half]);
+        y1 = __fdiv_rn(y1, sum[half]);
       }
+      *reinterpret_cast<uint32_t*>(cr + d8 * 8) = pack_bf16(y0, y1);
     }
   }
 }
@@ -802,7 +1242,9 @@ int launch_head_attention_tc(const __nv_bfloat16* qkv, const float* bias,
                              __nv_bfloat16* ctx, int B, int L, int D, int H,
                              float scale, cudaStream_t st) {
   const int Lp = (L + 15) & ~15;
-  const size_t smem = 3 * static_cast<size_t>(Lp) * kTcPitch * 2;
+  const int bias_rows = attn_bias_rows(bias, sbq, Lp);
+  const size_t smem = 3 * static_cast<size_t>(Lp) * kTcPitch * 2 +
+                      static_cast<size_t>(bias_rows) * Lp * 4;
   auto kernel = head_attention_tc_kernel<NT, NORM_FIRST>;
   if (smem > 48 * 1024) {
     const int err = static_cast<int>(cudaFuncSetAttribute(
@@ -810,32 +1252,37 @@ int launch_head_attention_tc(const __nv_bfloat16* qkv, const float* bias,
         static_cast<int>(smem)));
     if (err) return err;
   }
-  const int warps = Lp / 16 < kAttnTcWarps ? Lp / 16 : kAttnTcWarps;
-  kernel<<<B * H, warps * 32, smem, st>>>(qkv, bias, sbb, sbq, sbk, ctx,
-                                          B * L, L, D, H, scale);
+  kernel<<<B * H, Lp / 16 * 32, smem, st>>>(qkv, bias, sbb, sbq, sbk,
+                                             bias_rows, ctx, B * L, L, D, H,
+                                             scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B*H blocks; the caller checks 1 <= L <= 32 * KPL and D = H * 64. bf16
-// runs the tensor-core kernel, built for 16 * NT >= L keys (NT from
-// {4, 8, 2 KPL}); fp32 the CUDA-core one.
+// The caller checks 1 <= L <= 32 * KPL and D = H * 64. bf16 runs the
+// tensor-core kernel, built for 16 * NT >= L keys (NT from 4, 6, 8, 13,
+// 14; L <= 64 for KPL = 2); fp32 the CUDA-core one.
 template <typename T, int KPL, bool NORM_FIRST>
 int launch_head_attention(const T* qkv, const float* bias, long long sbb,
                           long long sbq, long long sbk, T* ctx, int B, int L,
                           int D, int H, float scale, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
-    static_assert(KPL <= 2 || KPL > 4, "NT buckets are 4, 8, 2 KPL");
-    if constexpr (KPL <= 2) {
-      return launch_head_attention_tc<2 * KPL, NORM_FIRST>(
+    static_assert(KPL == 2 || KPL == 7, "NT buckets cover L <= 64 or 224");
+    if (KPL == 2 || L <= 64)
+      return launch_head_attention_tc<4, NORM_FIRST>(
           qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+    if constexpr (KPL == 2) {
+      return -1;                         // L > 64: not reached
     } else {
-      if (L <= 64)
-        return launch_head_attention_tc<4, NORM_FIRST>(
+      if (L <= 96)
+        return launch_head_attention_tc<6, NORM_FIRST>(
             qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
       if (L <= 128)
         return launch_head_attention_tc<8, NORM_FIRST>(
             qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
-      return launch_head_attention_tc<2 * KPL, NORM_FIRST>(
+      if (L <= 208)
+        return launch_head_attention_tc<13, NORM_FIRST>(
+            qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+      return launch_head_attention_tc<14, NORM_FIRST>(
           qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
     }
   } else {

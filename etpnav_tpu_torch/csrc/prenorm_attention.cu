@@ -25,22 +25,23 @@
 //   2. the q/k/v projections as one GEMM with N = 3D, a (M, D) times the
 //      three weights, with the bias epilogue, writing q, k, v (3, M, D) in
 //      the natural (B, L, H*hd) layout;
-//   3. attention, one block per (sample, head) (head_attention_tc_kernel
-//      in bf16: q, k, v of the head (L <= 64 rows of hd = 64) copied into
-//      shared memory by cp.async, each warp scores 16 whole query rows on
-//      tensor cores, so the softmax max is the row's own, as in the Pallas
-//      kernel, and p is rounded once, unnormalised, in the fragments);
+//   3. attention (head_attention_tc_kernel in bf16: a grid of (sample,
+//      head, query group), one 16-row query tile per warp; q, k, v of the
+//      head (L <= 64 rows of hd = 64) copied into shared memory by
+//      cp.async; each warp scores its rows over all keys on tensor cores,
+//      so the softmax max is the row's own, as in the Pallas kernel, and
+//      p is rounded once, unnormalised, in the fragments);
 //   4. the output projection as a GEMM with the bias + residual epilogue.
 //
 // What bounds it: at the CLIP shape (B*12 = 96 images, L = 50, D = 768)
 // the four projections are 2*M*D*4D = 22.6 GFLOP against ~24 MB of
 // activations and weights, so in bf16 the tensor cores' rate bounds it
 // (~23 us at 989 TFLOP/s) and in fp32 the CUDA cores' (~340 us at 67
-// TFLOP/s). The bf16 GEMMs copy raw bf16 tiles through a 3-stage cp.async
-// ring into ldmatrix fragments for mma.sync (dense.cuh says why); the
-// chain keeps a, q/k/v and ctx in device memory between its kernels (5*M*D
-// elements written and read once each, ~4.6 MB in bf16, most of it in L2).
-// The fp32 launches keep the CUDA-core GEMM and attention.
+// TFLOP/s). The bf16 GEMMs run wgmma on tiles that TMA loads into a ring
+// of shared-memory stages (dense.cuh says why); the chain keeps a, q/k/v
+// and ctx in device memory between its kernels (5*M*D elements written
+// and read once each, ~4.6 MB in bf16, most of it in L2). The fp32
+// launches keep the CUDA-core GEMM and attention.
 
 #include "dense.cuh"
 
@@ -89,9 +90,9 @@ extern "C" {
 // in one dtype (0 = float32, 1 = bfloat16), contiguous; ln_g, ln_b and
 // the biases fp32 (D,); the weights fp32 (D, D) as (out, in); w_bf16 a
 // bf16 (4, D, D) scratch for the rounded weights (bf16 only; may be null
-// for float32). Needs D = H*64, D % 64 == 0 and 1 <= L <= 64. Returns the
-// first non-zero cudaGetLastError() of the chain, or -1 for arguments it
-// does not take.
+// for float32). Needs D = H*64, D % 64 == 0 and 1 <= L <= 64.
+// Returns the first non-zero cudaGetLastError() of the chain, or -1 for
+// arguments it does not take.
 int etp_prenorm_attention(const void* x, const void* ln_g, const void* ln_b,
                           const void* wq, const void* bq, const void* wk,
                           const void* bk, const void* wv, const void* bv,
@@ -136,6 +137,19 @@ int etp_round_bf16(const void* src, void* dst, int n, void* stream) {
   const float* s = static_cast<const float*>(src);
   return etp::launch_round_bf16(&s, 1, n, static_cast<__nv_bfloat16*>(dst),
                                 static_cast<cudaStream_t>(stream));
+}
+
+// out (M, N) bf16 = a (M, K) bf16 . w (N, K)^T bf16 + bias (N,) fp32,
+// rounded once: the chains' bf16 GEMM alone, for measuring it. tile 0
+// picks the tile configuration by shape, 1-4 name one (dense.cuh). Needs
+// N % 64 == 0, K % 64 == 0 and 16-byte aligned a and w (-2 otherwise).
+int etp_gemm_bf16(const void* a, const void* w, const void* bias, void* out,
+                  int M, int N, int K, int tile, void* stream) {
+  if (M < 1 || N < 64 || K < 64 || N % 64 != 0 || K % 64 != 0) return -1;
+  const float* bb = static_cast<const float*>(bias);
+  etp::GemmArgs p{a, {w, w, w}, {bb, bb, bb}, nullptr, out, M, K, N};
+  return etp::launch_gemm_bf16_tile<__nv_bfloat16>(
+      p, 1, tile, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

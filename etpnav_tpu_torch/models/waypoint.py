@@ -2,9 +2,9 @@
 (counterpart of `etpnav_tpu/models/waypoint.py`), with the train-time
 waypoint augmentation `sample_candidates`.
 
-The heatmap's softmax, row wrap and NMS run as one launch of K-NMS
-(`ops/fused_nms.py`); the TRM's attention, with the circular neighbour
-mask as its bias, runs through K-ATT.
+The heatmap's softmax, row wrap, NMS and candidate slots run as one
+launch of K-NMS (`ops/fused_nms.py`); the TRM's attention, with the
+circular neighbour mask as its bias, runs through K-ATT.
 """
 
 from __future__ import annotations
@@ -82,10 +82,9 @@ def heatmap_to_candidates(cfg: WaypointConfig,
     angle_idx, dist_idx, valid, img_idx (ccw view index), angles_ccw,
     distances (m), angle_fts (B,K,4), nms_map (B,120,12)."""
     A = cfg.num_angles
-    nms_map = heatmap_nms_fused(heatmap_logits.float(), cfg.max_predictions,
-                                cfg.nms_sigma)[:, 1:-1, :]
-    angle_idx, dist_idx, valid = extract_candidates(nms_map,
-                                                    cfg.max_predictions)
+    nms_map, angle_idx, dist_idx, valid = heatmap_nms_fused(
+        heatmap_logits.float(), cfg.max_predictions, cfg.nms_sigma)
+    nms_map = nms_map[:, 1:-1, :]
     angles_cw = angle_idx.float() / A * 2.0 * math.pi
     return {
         "angle_idx": angle_idx, "dist_idx": dist_idx, "valid": valid,

@@ -36,6 +36,8 @@ _MAX_LEN = 64
 #: version
 prenorm_attention_launches = cuda_build.LaunchCounter()
 prenorm_attention_plain_calls = cuda_build.LaunchCounter()
+#: launches of the chains' bf16 GEMM alone (`gemm_bf16`)
+gemm_bf16_launches = cuda_build.LaunchCounter()
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -45,6 +47,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.etp_prenorm_attention.restype = ctypes.c_int
     lib.etp_round_bf16.argtypes = [vp, vp, i32, vp]
     lib.etp_round_bf16.restype = ctypes.c_int
+    lib.etp_gemm_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+    lib.etp_gemm_bf16.restype = ctypes.c_int
 
 
 cuda_build.register_binder("prenorm_attention", _bind)
@@ -68,6 +72,46 @@ def round_bf16(w: torch.Tensor) -> torch.Tensor:
         err = lib.etp_round_bf16(w.data_ptr(), out.data_ptr(), w.numel(),
                                  torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "round_bf16")
+    return out
+
+
+def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of the chains' bf16 GEMM: (M, K) bf16 times the
+    (N, K) bf16 weight transposed, an fp32 sum plus the fp32 bias,
+    rounded once to bf16."""
+    return (a.float() @ w.float().t() + bias).to(torch.bfloat16)
+
+
+def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              tile: int = 0) -> torch.Tensor:
+    """out (M, N) = a (M, K) . w (N, K)^T + bias (N,) on the bf16 GEMM of
+    K-PRENORM and K-BLOCK (`csrc/dense.cuh`: wgmma fed by TMA), for
+    measuring it alone; `tile` 0 picks the tile configuration by shape,
+    1-4 name one. CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if a.device.type == "cpu":
+        return gemm_bf16_plain(a, w, bias)
+    M, K = a.shape
+    N = w.shape[0]
+    if (a.device.type != "cuda" or a.dtype != torch.bfloat16
+            or w.dtype != torch.bfloat16 or bias.dtype != torch.float32
+            or tuple(w.shape) != (N, K) or tuple(bias.shape) != (N,)
+            or not (a.is_contiguous() and w.is_contiguous()
+                    and bias.is_contiguous())
+            or w.device != a.device or bias.device != a.device):
+        raise ValueError(f"gemm_bf16: needs contiguous bf16 a (M, K), w "
+                         f"(N, K) and fp32 bias (N,) on one CUDA device, got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(w.shape)} "
+                         f"{w.dtype}, {tuple(bias.shape)} {bias.dtype}")
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=a.device)
+    lib = cuda_build.load("prenorm_attention")
+    with torch.cuda.device(a.device):
+        err = lib.etp_gemm_bf16(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), M, N, K, int(tile),
+                                torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "gemm_bf16")
+    gemm_bf16_launches.add()
     return out
 
 

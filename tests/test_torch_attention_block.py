@@ -201,6 +201,47 @@ def test_block_kernel_path_calls_no_library_gemm():
         assert name not in wrapper, name
 
 
+def test_bf16_gemm_is_wgmma_fed_by_tma():
+    """The one bf16 GEMM of K-PRENORM and K-BLOCK (`dense.cuh`) issues
+    `wgmma.mma_async` on shared-memory tiles that TMA
+    (`cp.async.bulk.tensor`) loads and mbarriers signal, with descriptors
+    in the 128-byte swizzle its tensor maps write; the bf16 branch of
+    `launch_gemm` reaches it, and no line names cuBLAS."""
+    dense = (ROOT / "etpnav_tpu_torch/csrc/dense.cuh").read_text()
+    code = "\n".join(line.split("//")[0] for line in dense.splitlines())
+    assert "cublas" not in code.lower()
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                "wgmma.fence.sync.aligned", "wgmma.commit_group.sync.aligned",
+                "wgmma.wait_group.sync.aligned",
+                "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier",
+                "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                "mbarrier.init"):
+        assert ptx in code, ptx
+    def body(sig: str) -> str:
+        text = code[code.index(sig):]
+        return text[:text.index("\n}\n")]
+
+    producer = body("void produce_tile(")
+    for call in ("mbar_wait(&empty[s]", "mbar_expect_tx(&full[s]",
+                 "tma_load_2d(st, tm_a", "tma_load_2d(st + Tile::kABytes"):
+        assert call in producer, call
+    consumer = body("void consume_tile(")
+    for call in ("mbar_wait(&full[s]", "wgmma_tile<BN>(d,", "wgmma_commit()",
+                 "wgmma_wait<1>()", "mbar_arrive(&empty["):
+        assert call in consumer, call
+    kernel = body("gemm_bf16_kernel(const __grid_constant__")
+    assert "produce_tile<BM, BN, STAGES>(&tm_a, &tm_w" in kernel
+    assert "consume_tile<BM, BN, STAGES>(d, base, full, empty" in kernel
+    assert "mma_bf16(" not in kernel and "cp_async16" not in kernel
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in code and "(1ull << 62)" in code
+    branch = code[code.index("int launch_gemm(const GemmArgs& p"):]
+    branch = branch[:branch.index("} else {")]
+    assert "launch_gemm_bf16_tile<TO>(p, parts, 0, st)" in branch
+    tiles = code[code.index("int launch_gemm_bf16_tile("):]
+    assert "launch_gemm_bf16<TO, 128, 128, 3, 2>" in tiles
+    assert "gemm_bf16_kernel<TO, BM, BN, STAGES, MIN_BLOCKS>" in code
+
+
 def test_block_wrapper_cpu_routes_to_plain():
     _, params, x, mask = block_case(16)
     before = (tfb.attention_block_launches.value,
