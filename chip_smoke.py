@@ -21,8 +21,7 @@ Phases, each reported on its own lines:
      bit against its plain version (`heatmap_nms_plain` +
      `extract_candidates`) at B = 8, 1, 7 and in crafted cases (a peak on
      a wrap row, underflowed probabilities, ties), its kernel_ms beside
-     the launch floor (a one-element elementwise op) and at 1 to 32 warps
-     per sample; K-GN at every GroupNorm shape
+     the launch floor (a one-element elementwise op); K-GN at every GroupNorm shape
      of the fused depth trunk at B = 96 (recorded from one fused trunk
      pass on the card; two launches bit-equal; the device time summed
      over one perceive's 54 launches); the bf16 weight rounding of
@@ -75,7 +74,8 @@ Phases, each reported on its own lines:
      instructions, L = 80) and the `visn_self_att` block of each of the 4
      cross-modal layers on the graph states `forward_navigation` feeds it
      (G = 96, mask + sprel bias), in the stack's dtype and in fp32, and
-     alone at (160, 64), (64, 200) and the ragged (7, 83); exact launch
+     alone at (160, 64), (64, 200), the ragged (7, 83) and (16, 200) with
+     a bias per (query, key) read where it lies; exact launch
      counts, each launch against its plain version and against the port's
      unfused `self_attention_block`, times beside the card's bound and
      the bf16 time split by kernel;
@@ -695,9 +695,9 @@ def check_nms(card: str) -> dict:
     """K-NMS's map and slots bit for bit against the plain version
     (`heatmap_nms_plain` + `extract_candidates`) on the card; times at the
     random cases beside the launch floor (a one-element elementwise op)
-    and, at B = 8, the kernel at every block size its entry point takes."""
+    (the exact compare holds by construction: the kernel and the plain
+    version sum the softmax exactly, in 64-bit fixed point)."""
     from etpnav_tpu_torch.ops.fused_nms import (
-        NMS_WARPS,
         heatmap_candidates_plain,
         heatmap_nms_fused,
     )
@@ -734,11 +734,6 @@ def check_nms(card: str) -> dict:
                                                         torch.float32)
             row["library_ms"] = None
             row["floor_kernel_ms"] = floor_ms
-        if name == "B8":
-            row["kernel_ms_by_warps"] = {
-                w: kernel_ms(lambda: heatmap_nms_fused(logits, 5, (7.0, 5.0),
-                                                       warps=w))
-                for w in (1, 4, 8, 16, 32)}
         rows[name] = row
         times = ("" if "ms" not in row else
                  f" ms={row['ms']:.4f} kernel_ms={row['kernel_ms']:.4f} "
@@ -747,10 +742,6 @@ def check_nms(card: str) -> dict:
                  f"({row['bound_by']})")
         log(f"K-NMS {name} ({B},120,12) fp32: map and slots bit-equal, "
             f"{row['valid_slots']} valid slots{times} [{card}]")
-    log("K-NMS B8 kernel_ms by warps per sample (default "
-        f"{NMS_WARPS}): " + ", ".join(
-            f"{w}: {t:.4f}" for w, t in
-            rows["B8"]["kernel_ms_by_warps"].items()) + f" [{card}]")
     return rows
 
 
@@ -761,7 +752,7 @@ def check_gemm(card: str) -> dict:
     (64, 200): against its plain version (two bf16 ulps at the largest
     output, fp32 sums in another order), its kernel_ms beside one
     `torch.matmul` of the same shape (a yardstick the port never calls);
-    at M = 4800 every tile configuration."""
+    then the soak of `soak_gemm`."""
     from etpnav_tpu_torch.ops.fused_prenorm import gemm_bf16, gemm_bf16_plain
     g = torch.Generator(device="cuda").manual_seed(6)
     N, K = 2304, 768
@@ -786,21 +777,73 @@ def check_gemm(card: str) -> dict:
                "matmul_tflops": flops / lib_ms / 1e9,
                "bound_ms": bound_ms(2 * (M * K + N * K + M * N),
                                     flops, torch.bfloat16)[0]}
-        if M == 4800:
-            row["kernel_ms_by_tile"] = {
-                t: kernel_ms(lambda: gemm_bf16(a, w, bias, tile=t))
-                for t in (1, 2, 3, 4)}
         rows[f"M{M}"] = row
         log(f"GEMM bf16 ({M},{K})x({K},{N}) err={err:.3g} (tol {tol:.3g}) "
             f"kernel_ms={k_ms:.4f} ({row['tflops']:.0f} TFLOP/s) "
             f"torch.matmul kernel_ms={lib_ms:.4f} "
             f"({row['matmul_tflops']:.0f} TFLOP/s), {row['ratio']:.2f}x; "
-            f"bound_ms={row['bound_ms']:.4f}" + (
-                "" if M != 4800 else "; by tile " + ", ".join(
-                    f"{t}: {v:.4f}"
-                    for t, v in row["kernel_ms_by_tile"].items()))
-            + f" [{card}]")
+            f"bound_ms={row['bound_ms']:.4f} [{card}]")
+    rows["soak"] = soak_gemm(card)
     return rows
+
+
+#: (M, N, K) of the GEMM soak: each of the three tile configurations
+#: (128 x 128, 64 x 128, 64 x 64), M ragged against every tile height
+GEMM_SOAK_SHAPES = ((4801, 2304, 768), (83, 768, 768), (200, 192, 128))
+GEMM_SOAK_LAUNCHES = 30000
+GEMM_SOAK_LIMIT_S = 60.0
+
+
+def soak_gemm(card: str) -> dict:
+    """The GEMM's mbarrier / TMA ring run long, under a watchdog: 10,000
+    back-to-back launches of each shape of GEMM_SOAK_SHAPES (one per tile
+    configuration, ragged M), every 100th launch's output held to the
+    first launch's, bit for bit, and that one to the plain version.
+    A launch that never finishes (a deadlocked ring) makes the host's
+    polling of an event run past GEMM_SOAK_LIMIT_S: the script then
+    reports it and exits non-zero at once, since a hung kernel cannot be
+    cancelled from the host."""
+    from etpnav_tpu_torch.ops.fused_prenorm import gemm_bf16, gemm_bf16_plain
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for M, N, K in GEMM_SOAK_SHAPES:
+        a = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(N, K, generator=g, device="cuda") * 0.03).bfloat16()
+        bias = torch.randn(N, generator=g, device="cuda") * 0.1
+        first = gemm_bf16(a, w, bias)
+        want = gemm_bf16_plain(a, w, bias)
+        cases.append((a, w, bias, first, want))
+    n_each = GEMM_SOAK_LAUNCHES // len(cases)
+    differ = torch.zeros(len(cases), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(n_each):
+        for j, (a, w, bias, first, _) in enumerate(cases):
+            out = gemm_bf16(a, w, bias)
+            if i % 100 == 99:
+                differ[j] += (out != first).sum()
+    done = torch.cuda.Event()
+    done.record()
+    while not done.query():
+        if time.perf_counter() - t0 > GEMM_SOAK_LIMIT_S:
+            print(f"GEMM soak: {GEMM_SOAK_LAUNCHES} launches not finished "
+                  f"after {GEMM_SOAK_LIMIT_S:.0f} s: the ring hangs "
+                  f"[{card}]", flush=True)
+            os._exit(1)
+        time.sleep(0.01)
+    seconds = time.perf_counter() - t0
+    for (M, N, K), (_, _, _, first, want), n_diff in zip(
+            GEMM_SOAK_SHAPES, cases, differ.tolist()):
+        err = (first.float() - want.float()).abs().max().item()
+        if err > bf16_tol(want):
+            raise AssertionError(f"GEMM soak ({M},{N},{K}): err {err}")
+        if n_diff:
+            raise AssertionError(f"GEMM soak ({M},{N},{K}): {n_diff} "
+                                 "elements differ from the first launch")
+    log(f"GEMM soak: {n_each * len(cases)} launches over "
+        f"{len(cases)} tile configurations {list(GEMM_SOAK_SHAPES)} in "
+        f"{seconds:.2f} s, no hang, outputs unchanged [{card}]")
+    return {"launches": n_each * len(cases), "seconds": seconds,
+            "shapes": [list(x) for x in GEMM_SOAK_SHAPES]}
 
 
 def bf16_tol(want: torch.Tensor) -> float:
@@ -1122,18 +1165,22 @@ def serve(card: str, cfg, params, counters) -> dict:
     return res
 
 
-def device_ops(fn) -> int:
-    """Device ops (kernels and copies) of one call of fn, profiled."""
+def device_ops(fn, reps: int = 1) -> int:
+    """Device ops (kernels and copies) per call of fn: `reps` calls
+    profiled together, the count divided by reps and rounded: one run on
+    the card counted the 14-op extract_candidates chain alone as 13, once,
+    and a count off by one in one call must not decide the check."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0)
+    return round(sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0) / reps)
 
 
 def perceive_ops(card: str, agent, rgb, dep) -> dict:
@@ -1149,14 +1196,15 @@ def perceive_ops(card: str, agent, rgb, dep) -> dict:
         nms_map = fused(logits, k, sigma)[0]
         return (nms_map,) + tuple(extract_candidates(nms_map[:, 1:-1], k))
 
-    ops = device_ops(lambda: agent.perceive(rgb, dep))
+    ops = device_ops(lambda: agent.perceive(rgb, dep), reps=3)
     waypoint.heatmap_nms_fused = with_chain
     try:
-        ops_chain = device_ops(lambda: agent.perceive(rgb, dep))
+        ops_chain = device_ops(lambda: agent.perceive(rgb, dep), reps=3)
     finally:
         waypoint.heatmap_nms_fused = fused
     nms_map = torch.rand(8, 122, 12, device="cuda")
-    chain = device_ops(lambda: extract_candidates(nms_map[:, 1:-1], 5))
+    chain = device_ops(lambda: extract_candidates(nms_map[:, 1:-1], 5),
+                       reps=9)
     log(f"device ops per perceive: {ops} with K-NMS's slots, {ops_chain} "
         f"with the extract_candidates chain ({chain} ops) [{card}]")
     if ops_chain - ops != chain:
@@ -1698,7 +1746,8 @@ def block_work(x: torch.Tensor, bias) -> tuple:
 def check_block(card: str, cfg, planner_p, counters) -> tuple:
     """Phase 8: K-BLOCK on the 9 text-encoder and 4 graph self-attention
     blocks of `r2r_config` (stack dtype and fp32) and alone at the TPU
-    note's (160, 64) and (64, 200). The launches run first with every
+    note's (160, 64) and (64, 200), the ragged (7, 83), and (16, 200) with
+    a bias per (query, key) too large to stage. The launches run first with every
     count at 0 and are read before anything else runs; then each is held
     to its plain version and to the port's unfused block, and one case per
     shape and dtype is timed."""
@@ -1724,6 +1773,12 @@ def check_block(card: str, cfg, planner_p, counters) -> tuple:
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((f"alone_{Bx}x{L}", p0, x32.to(dtype), bias,
                           pc.lang_layer_norm_eps))
+    # a bias per (query, key) too large to stage: read where it lies
+    x32 = torch.randn(16, 200, pc.hidden_size, generator=g, device="cuda")
+    bias = torch.randn(16, 1, 200, 200, generator=g, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(("alone_16x200_full_bias", p0, x32.to(dtype), bias,
+                      pc.lang_layer_norm_eps))
     for c in counters.values():
         c.reset()
     outs = [attention_block(x, p, bias, H, eps)
@@ -3811,7 +3866,6 @@ def main() -> int:
                "plain_ms is heatmap_nms_plain + extract_candidates",
          "kernel_ms": n["kernel_ms"],
          "floor_kernel_ms": n["floor_kernel_ms"],
-         "kernel_ms_by_warps": n["kernel_ms_by_warps"],
          "perceive_ops": res["perceive_ops"],
          "perceive_ops_with_chain": res["perceive_ops_with_chain"]},
         {"name": "group_norm_fused", "route": "cuda",
@@ -3851,7 +3905,8 @@ def main() -> int:
          "unfused_half_block_kernel_ms": p["unfused_half_block_kernel_ms"],
          "gemm_bf16": {k: {f: r[f] for f in ("kernel_ms", "matmul_kernel_ms",
                                              "ratio", "tflops")}
-                       for k, r in gemm_rows.items()}},
+                       for k, r in gemm_rows.items() if k != "soak"},
+         "gemm_bf16_soak": gemm_rows["soak"]},
         {"name": "attention_bwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_bwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_bwd", 0),
@@ -3886,7 +3941,8 @@ def main() -> int:
          "library_ms": None,
          "at": "text-encoder layer x (8,80,768) bf16 + key-mask bias; "
                "launches: phase 8's 9 text + 4 graph blocks in two dtypes "
-               "and (160,64), (64,200), (7,83) in two",
+               "and (160,64), (64,200), (7,83), (16,200) with a full bias "
+               "in two",
          "unfused_block_ms": kb["unfused_block_ms"],
          "kernel_ms": kb["kernel_ms"],
          "unfused_block_kernel_ms": kb["unfused_block_kernel_ms"],
@@ -3894,7 +3950,8 @@ def main() -> int:
              k.split("/")[0]: [block_rows[k]["kernel_ms"],
                                block_rows[k]["unfused_block_kernel_ms"]]
              for k in ("text0/bfloat16", "alone_160x64/bfloat16",
-                       "alone_64x200/bfloat16", "alone_7x83/bfloat16")}},
+                       "alone_64x200/bfloat16", "alone_7x83/bfloat16",
+                       "alone_16x200_full_bias/bfloat16")}},
         {"name": "attention_fwd_head_out", "route": "cuda",
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "tools/exp_attn_layout.py:61 bdims_attention",

@@ -27,13 +27,14 @@
 //   0. bf16 only: the four (D, D) weights rounded to bf16 once per call;
 //   1. the q/k/v projections as one GEMM with N = 3D, writing q, k, v
 //      (3, M, D), M = B*L;
-//   2. attention with the bias and the normalise-first rounding, one
-//      block per (sample, head): in bf16 head_attention_tc_kernel (one
-//      16-row query tile per warp; Q, K and V of the head, L <= 224 rows
-//      of hd = 64, in shared memory by cp.async; each warp scores its
-//      rows over all keys on tensor cores, so the max and the sum are the
-//      row's own), in fp32 the CUDA-core head_attention_kernel; both
-//      write ctx (M, D);
+//   2. attention with the bias and the normalise-first rounding: in bf16
+//      head_attention_tc_kernel, a grid of (sample, head, query group of
+//      up to 4 tiles), one 16-row query tile per warp (K and V of the
+//      head, L <= 224 rows of hd = 64, and the group's Q in shared memory
+//      by cp.async; each warp scores its rows over all keys on tensor
+//      cores, so the max and the sum are the row's own); in fp32 the
+//      CUDA-core head_attention_kernel, one block per (sample, head);
+//      both write ctx (M, D);
 //   3. the output projection as a GEMM whose epilogue adds bo and the
 //      residual and stores the fp32 pre-norm row h (M, D);
 //   4. the row LayerNorm of h, one warp per row, rounded to x's dtype.

@@ -30,11 +30,12 @@
 //     fp32, and stores in TO: A's dtype (rounded once) or fp32 (not
 //     rounded, for a LayerNorm that follows), 16 bytes a lane through a
 //     small per-warp buffer in shared memory;
-//   - the attention scores and sums on tensor cores (mma.sync): one block
-//     per (sample, head), one warp per 16 query rows; K, V and Q of the
-//     head in shared memory as bf16 by cp.async; a row's scores over all
-//     keys in registers (the row's own max and sum, as in the Pallas
-//     kernels), p packed from the fragments as the A operand of p.v.
+//   - the attention scores and sums on tensor cores (mma.sync): a grid of
+//     (sample, head, query group of up to 4 tiles), one warp per 16 query
+//     rows; the head's K and V and the group's Q in shared memory as bf16
+//     by cp.async; a row's scores over all keys in registers (the row's
+//     own max and sum, as in the Pallas kernels), p packed from the
+//     fragments as the A operand of p.v.
 // The fp32 launches keep CUDA-core arithmetic: 64x64 tiles over k-slabs of
 // 16, 4x4 outputs per thread, sums in k order; the attention with fp32 K
 // and V in shared memory, one warp per query row.
@@ -551,59 +552,11 @@ __device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n256(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
 template <int N>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
                                            uint64_t db) {
   if constexpr (N == 64) wgmma_m64n64(d, da, db);
-  else if constexpr (N == 128) wgmma_m64n128(d, da, db);
-  else wgmma_m64n256(d, da, db);
+  else wgmma_m64n128(d, da, db);
 }
 
 // bf16: a ring of STAGES k-slabs of 64 (one 128-byte swizzle row of bf16
@@ -818,35 +771,16 @@ int launch_gemm_bf16(const GemmArgs& p, int parts, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 tile configurations, by index (0 picks by shape): BM x BN,
-// stages, blocks per SM.
-//   1: 128 x 128, 3 stages (107 KB), 2 blocks per SM, where M gives two
-//      blocks per SM;
-//   2: 64 x 128, 4 stages (102 KB), 2 blocks per SM, where it does not
-//      (K-BLOCK's text layer, M = 640);
-//   3: 64 x 64, 4 stages (70 KB), 3 blocks per SM, for n_part % 128 != 0;
-//   4: 128 x 256, 4 stages (203 KB), 1 block per SM: the fastest at K =
-//      3072, slower than 1 at the port's K = 768, where a tile's epilogue
-//      and pipeline fill weigh more. chip_smoke.py measures all four.
-constexpr int kGemmTiles = 4;
-
-inline int pick_gemm_tile(int M, int n_total, int n_part) {
-  const long long mt128 = (M + 127) / 128;
-  if (n_part % 128 == 0 && mt128 * (n_total / 128) >= 2 * kSms) return 1;
-  return n_part % 128 == 0 ? 2 : 3;
-}
-
-// The output columns BN of tile configuration `tile`.
-inline int tile_bn(int tile) {
-  return tile == 4 ? 256 : (tile == 3 ? 64 : 128);
-}
-
+// The bf16 tile configuration, by shape: BM x BN, stages, blocks per SM.
+//   128 x 128, 3 stages (107 KB), 2 blocks per SM, where M gives two
+//     blocks per SM;
+//   64 x 128, 4 stages (102 KB), 2 blocks per SM, where it does not
+//     (K-BLOCK's text layer, M = 640);
+//   64 x 64, 4 stages (70 KB), 3 blocks per SM, for n_part % 128 != 0.
+// 128 x 256 tiles at one block per SM were slower than 128 x 128 at the
+// port's K = 768 (PERF.md).
 template <typename TO>
-int launch_gemm_bf16_tile(const GemmArgs& p, int parts, int tile,
-                          cudaStream_t st) {
-  if (tile == 0) tile = pick_gemm_tile(p.M, parts * p.n_part, p.n_part);
-  if (tile < 1 || tile > kGemmTiles || p.n_part % tile_bn(tile) != 0)
-    return -1;
+int dispatch_gemm_bf16(const GemmArgs& p, int parts, cudaStream_t st) {
   // the parts' weights are one (parts * n_part, K) matrix
   for (int i = 1; i < parts; ++i)
     if (p.w[i] != static_cast<const __nv_bfloat16*>(p.w[0]) +
@@ -860,12 +794,13 @@ int launch_gemm_bf16_tile(const GemmArgs& p, int parts, int tile,
   if (reinterpret_cast<uintptr_t>(p.residual) % 16 ||
       reinterpret_cast<uintptr_t>(p.out) % 16)
     return -2;                           // the epilogue's 16-byte vectors
-  switch (tile) {
-    case 1: return launch_gemm_bf16<TO, 128, 128, 3, 2>(p, parts, st);
-    case 2: return launch_gemm_bf16<TO, 64, 128, 4, 2>(p, parts, st);
-    case 3: return launch_gemm_bf16<TO, 64, 64, 4, 3>(p, parts, st);
-    default: return launch_gemm_bf16<TO, 128, 256, 4, 1>(p, parts, st);
-  }
+  if (p.n_part % 128 != 0)
+    return launch_gemm_bf16<TO, 64, 64, 4, 3>(p, parts, st);
+  const long long tiles128 =
+      static_cast<long long>((p.M + 127) / 128) * (parts * p.n_part / 128);
+  if (tiles128 >= 2 * kSms)
+    return launch_gemm_bf16<TO, 128, 128, 3, 2>(p, parts, st);
+  return launch_gemm_bf16<TO, 64, 128, 4, 2>(p, parts, st);
 }
 
 // fp32: CUDA-core FMAs; 256 threads in a 16x16 grid, 4x4 outputs each.
@@ -933,7 +868,7 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs p) {
 template <typename TA, typename TO>
 int launch_gemm(const GemmArgs& p, int parts, cudaStream_t st) {
   if constexpr (sizeof(TA) == 2) {
-    return launch_gemm_bf16_tile<TO>(p, parts, 0, st);
+    return dispatch_gemm_bf16<TO>(p, parts, st);
   } else {
     const dim3 grid((p.M + kTile - 1) / kTile, parts * p.n_part / kTile);
     gemm_f32_kernel<TO><<<grid, 256, 0, st>>>(p);
@@ -1045,59 +980,87 @@ head_attention_kernel(const T* __restrict__ qkv,
   }
 }
 
-// bf16 on tensor cores: one block per (sample, head) and one warp per
-// 16-row query tile (nt = Lp / 16 warps, Lp = L rounded up to 16), so
-// every warp carries one tile and the head's K and V are copied once (an
-// earlier design gave 8 warps 13 tiles at L = 200, 5 of them two). The
-// block copies K, V and Q (rows >= L zero) into shared memory by
-// cp.async, at pitch kTcPitch, and the bias as fp32: one row for a key
-// mask, else its rows where they fit two blocks per SM, else the bias is
-// read where it lies. A warp's scores of its 16 rows over all Lp keys
-// stay in the m16n8 accumulators (NT 16-key tiles, L <= 16 NT; NT is
-// the smallest of 4, 6, 8, 13, 14 that holds L, so that 13 warps of ~150
-// registers at L = 200 fit one SM), so the max and the sum are the row's
-// own (keys >= L score -inf). p = exp(l - max) in fp32; the sum adds the
-// fp32 p; p is rounded to bf16 (after the division by the sum when
-// NORM_FIRST) into packed A operands before the p.v accumulators start;
-// the fp32 sum of p.v is divided last otherwise, then rounded.
+// bf16 on tensor cores: a grid of (sample, head, query group), one warp
+// per 16-row query tile. The head's nt = Lp / 16 query tiles (Lp = L
+// rounded up to 16) split into ceil(nt / kQw) groups of at most kQw = 4
+// tiles, as equal as they come (at L = 200: 3, 3, 3 and 4), one block of
+// 4 warps each, so every warp carries one tile and a thread may hold up
+// to ~170 registers at three blocks per SM (the scores of 16 rows over
+// 208 keys need ~160; at L <= 128, 128 registers and four blocks per SM
+// do). A block copies the head's K and V (rows >= L zero) and its own Q
+// rows into shared memory by cp.async, at pitch kTcPitch, and the bias
+// as fp32: one row for a key mask, else its query rows where they fit
+// two blocks per SM, else the bias is read where it lies. A warp's scores of its 16 rows over all Lp keys stay in the m16n8
+// accumulators (NT 16-key tiles, L <= 16 NT; NT is the smallest of 4, 6,
+// 8, 13, 14 that holds L), so the max and the sum are the row's own (keys
+// >= L score -inf). p = exp(l - max) in fp32; the sum adds the fp32 p; p
+// is rounded to bf16 (after the division by the sum when NORM_FIRST) into
+// packed A operands before the p.v accumulators start; the fp32 sum of
+// p.v is divided last otherwise, then rounded.
+// One block of nt warps per (sample, head) copies K and V once but, at L
+// = 200, holds 13 warps: 128 registers a thread, spilling. Built with
+// this softmax it was no faster at L = 200 with a key mask, and slower
+// with a full bias and at L <= 96 (PERF.md).
+constexpr int kQw = 4;                             // query tiles a block
 constexpr size_t kAttnSmemPerBlock = 113 * 1024;   // two blocks per SM
 
-// The rows of fp32 bias a block stages in shared memory: 0 (none, or read
-// where it lies), 1 (a bias the same for every row) or Lp.
-inline int attn_bias_rows(const float* bias, long long sbq, int Lp) {
-  if (!bias) return 0;
-  if (sbq == 0) return 1;
-  const size_t kv = (3 * static_cast<size_t>(Lp)) * kTcPitch * 2;
-  return kv + static_cast<size_t>(Lp) * Lp * 4 <= kAttnSmemPerBlock ? Lp
-                                                                     : 0;
+// Where a block finds the head attention's bias: none; one key row the
+// same for every query row (a key mask), staged in shared memory; its
+// query rows, staged where they fit two blocks per SM; or in global
+// memory where it lies. A template parameter of the kernel, so that each
+// instantiation holds one path.
+enum AttnBias { kBiasNone, kBiasKeyRow, kBiasRows, kBiasGlobal };
+
+inline int attn_bias_mode(const float* bias, long long sbq, int Lp) {
+  if (!bias) return kBiasNone;
+  if (sbq == 0) return kBiasKeyRow;
+  const size_t kvq = (2 * static_cast<size_t>(Lp) + kQw * 16) * kTcPitch * 2;
+  return kvq + static_cast<size_t>(kQw) * 16 * Lp * 4 <= kAttnSmemPerBlock
+             ? kBiasRows : kBiasGlobal;
+}
+
+// the rows of fp32 bias a block of mode BIAS stages
+template <int BIAS>
+__host__ __device__ constexpr int staged_bias_rows() {
+  return BIAS == kBiasKeyRow ? 1 : (BIAS == kBiasRows ? kQw * 16 : 0);
 }
 
 // p / s rounded to nearest even for 0 <= p <= 1 <= s (a probability over
 // its row's sum), through the row's correctly rounded reciprocal y = 1/s:
 // q0 = RN(p y), then RN(q0 + RN(p - s q0) y), which is the correctly
 // rounded quotient while p - s q0 does not underflow (Markstein's
-// correction); p below 2^-100 takes __fdiv_rn. Three instructions in
-// place of __fdiv_rn's reciprocal refinement and range check per element.
+// correction), so for p = 0 and for p >= 2^-100; three instructions in
+// place of __fdiv_rn's reciprocal refinement and range check. A warp
+// that holds any p in (0, 2^-100) divides all of its p by __fdiv_rn.
 __device__ __forceinline__ float div_by_row_sum(float p, float s, float y) {
-  if (p < 0x1p-100f) return p == 0.f ? 0.f : __fdiv_rn(p, s);
   const float q0 = __fmul_rn(p, y);
   return __fmaf_rn(__fmaf_rn(-q0, s, p), y, q0);
 }
 
-template <int NT, bool NORM_FIRST>
-__global__ void __launch_bounds__(NT * 32, NT >= 13 ? 1 : 2)
+__device__ __forceinline__ bool needs_fdiv(float p) {
+  return p > 0.f && p < 0x1p-100f;
+}
+
+template <int NT, bool NORM_FIRST, int BIAS>
+__global__ void __launch_bounds__(kQw * 32, NT >= 13 ? 3 : 4)
 head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                          const float* __restrict__ bias, long long sbb,
-                         long long sbq, long long sbk, int bias_rows,
+                         long long sbq, long long sbk,
                          __nv_bfloat16* __restrict__ ctx, int M, int L,
                          int D, int H, float scale) {
+  constexpr int bias_rows = staged_bias_rows<BIAS>();
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int Lp = (L + 15) & ~15, nt = Lp / 16;
+  const int groups = (nt + kQw - 1) / kQw;
+  const int g = blockIdx.x % groups, bh = blockIdx.x / groups;
+  const int b = bh / H, h = bh % H;
+  // the block's query tiles [t0, t1), rows [r0, r0 + nq)
+  const int t0 = g * nt / groups, t1 = (g + 1) * nt / groups;
+  const int r0 = t0 * 16, nq = (t1 - t0) * 16;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(attn_smem);
   __nv_bfloat16* vs = ks + Lp * kTcPitch;
   __nv_bfloat16* qs = vs + Lp * kTcPitch;
-  float* bs = reinterpret_cast<float*>(qs + Lp * kTcPitch);
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  float* bs = reinterpret_cast<float*>(qs + kQw * 16 * kTcPitch);
   const long long plane = static_cast<long long>(M) * D;
   const long long row0 = static_cast<long long>(b) * L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1107,36 +1070,28 @@ head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     const int r = c / (kTcHd / 8), dc = (c % (kTcHd / 8)) * 8;
     const bool ok = r < L;
     const long long o = (row0 + (ok ? r : 0)) * D + h * kTcHd + dc;
-    cp_async16_zfill(qs + r * kTcPitch + dc, qkv + o, ok);
     cp_async16_zfill(ks + r * kTcPitch + dc, qkv + plane + o, ok);
     cp_async16_zfill(vs + r * kTcPitch + dc, qkv + 2 * plane + o, ok);
   }
+  for (int c = threadIdx.x; c < nq * (kTcHd / 8); c += blockDim.x) {
+    const int r = c / (kTcHd / 8), dc = (c % (kTcHd / 8)) * 8;
+    const bool ok = r0 + r < L;
+    const long long o = (row0 + (ok ? r0 + r : 0)) * D + h * kTcHd + dc;
+    cp_async16_zfill(qs + r * kTcPitch + dc, qkv + o, ok);
+  }
   for (int c = threadIdx.x; c < bias_rows * Lp; c += blockDim.x) {
-    const int r = c / Lp, j = c % Lp;
-    bs[c] = r < L && j < L ? bias[b * sbb + r * sbq + j * sbk] : 0.f;
+    const int gr = BIAS == kBiasKeyRow ? 0 : r0 + c / Lp, j = c % Lp;
+    bs[c] = gr < L && j < L ? bias[b * sbb + gr * sbq + j * sbk] : 0.f;
   }
   cp_async_wait_all();
   __syncthreads();
-  const int q0 = warp * 16;
-  // the bias of the warp's rows at element strides (sr, sc): staged, or
-  // where it lies
-  const float* bw = nullptr;
-  int sr = 0, sc = 1;
-  if (bias_rows == 1) {
-    bw = bs;
-  } else if (bias_rows > 1) {
-    bw = bs + q0 * Lp;
-    sr = Lp;
-  } else if (bias) {
-    bw = bias + b * sbb + q0 * sbq;
-    sr = static_cast<int>(sbq);
-    sc = static_cast<int>(sbk);
-  }
+  if (warp >= t1 - t0) return;           // a group of fewer than kQw tiles
+  const int q0 = r0 + warp * 16;
 
   uint32_t qf[kTcHd / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kTcHd / 16; ++kk)
-    load_a(qf[kk], qs, kTcPitch, q0, kk * 16, lane);
+    load_a(qf[kk], qs, kTcPitch, warp * 16, kk * 16, lane);
   float s[2 * NT][4];
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
@@ -1153,23 +1108,61 @@ head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
   }
 
-  // logits, the row's max: e < 2 is row q0 + grp, e >= 2 row + 8 (rows >=
-  // L are computed, take no bias and are not stored)
+  // logits and the row's max: e < 2 is row q0 + grp, e >= 2 row + 8; keys
+  // >= L score -inf. A staged bias is read as float2 pairs of keys (a key
+  // row, or the warp's two rows), a bias in global memory where it lies;
+  // rows >= L are computed, read no bias from global memory and are not
+  // stored.
   float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (BIAS == kBiasKeyRow || BIAS == kBiasRows) {
+    const float* br0 =
+        bs + (BIAS == kBiasKeyRow ? 0 : (warp * 16 + grp) * Lp);
+    const float* br1 = BIAS == kBiasKeyRow ? br0 : br0 + 8 * Lp;
 #pragma unroll
-  for (int t8 = 0; t8 < 2 * NT; ++t8)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = grp + (e >> 1) * 8;
-      const int j = t8 * 8 + 2 * tig + (e & 1);
-      float v = -INFINITY;
-      if (j < L) {
-        v = __fmul_rn(s[t8][e], scale);
-        if (bw && q0 + r < L) v = __fadd_rn(v, bw[r * sr + j * sc]);
+    for (int t8 = 0; t8 < 2 * NT; ++t8) {
+      const int j = t8 * 8 + 2 * tig;
+      float2 b0 = make_float2(0.f, 0.f), b1 = b0;
+      if (t8 < 2 * nt) {                 // uniform; keys past Lp
+        b0 = *reinterpret_cast<const float2*>(br0 + j);
+        b1 = *reinterpret_cast<const float2*>(br1 + j);
       }
-      s[t8][e] = v;
-      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      const float bb[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = __fadd_rn(__fmul_rn(s[t8][e], scale), bb[e]);
+        s[t8][e] = j + (e & 1) < L ? v : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[t8][e]);
+      }
     }
+  } else if constexpr (BIAS == kBiasGlobal) {
+    const float* bw = bias + b * sbb + q0 * sbq;
+#pragma unroll
+    for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = grp + (e >> 1) * 8;
+        const int j = t8 * 8 + 2 * tig + (e & 1);
+        s[t8][e] = __fmul_rn(s[t8][e], scale);
+        if (j < L && q0 + r < L)
+          s[t8][e] = __fadd_rn(s[t8][e], bw[r * sbq + j * sbk]);
+      }
+#pragma unroll
+    for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (t8 * 8 + 2 * tig + (e & 1) >= L) s[t8][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[t8][e]);
+      }
+  } else {
+#pragma unroll
+    for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = t8 * 8 + 2 * tig + (e & 1);
+        s[t8][e] = j < L ? __fmul_rn(s[t8][e], scale) : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[t8][e]);
+      }
+  }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1191,12 +1184,25 @@ head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
     sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
   }
   if (NORM_FIRST) {
-    const float y[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+    bool tiny = false;
 #pragma unroll
     for (int t8 = 0; t8 < 2 * NT; ++t8)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[t8][e] = div_by_row_sum(s[t8][e], sum[e >> 1], y[e >> 1]);
+      for (int e = 0; e < 4; ++e) tiny |= needs_fdiv(s[t8][e]);
+    if (__any_sync(kFull, tiny)) {       // warp-uniform: no divergence
+#pragma unroll
+      for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[t8][e] = __fdiv_rn(s[t8][e], sum[e >> 1]);
+    } else {
+      const float y[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+      for (int t8 = 0; t8 < 2 * NT; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[t8][e] = div_by_row_sum(s[t8][e], sum[e >> 1], y[e >> 1]);
+    }
   }
   uint32_t pa[NT][4];
 #pragma unroll
@@ -1236,26 +1242,47 @@ head_attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-template <int NT, bool NORM_FIRST>
-int launch_head_attention_tc(const __nv_bfloat16* qkv, const float* bias,
-                             long long sbb, long long sbq, long long sbk,
-                             __nv_bfloat16* ctx, int B, int L, int D, int H,
-                             float scale, cudaStream_t st) {
+template <int NT, bool NORM_FIRST, int BIAS>
+int launch_head_attention_tc_bias(const __nv_bfloat16* qkv, const float* bias,
+                                  long long sbb, long long sbq, long long sbk,
+                                  __nv_bfloat16* ctx, int B, int L, int D,
+                                  int H, float scale, cudaStream_t st) {
   const int Lp = (L + 15) & ~15;
-  const int bias_rows = attn_bias_rows(bias, sbq, Lp);
-  const size_t smem = 3 * static_cast<size_t>(Lp) * kTcPitch * 2 +
-                      static_cast<size_t>(bias_rows) * Lp * 4;
-  auto kernel = head_attention_tc_kernel<NT, NORM_FIRST>;
+  const size_t smem =
+      (2 * static_cast<size_t>(Lp) + kQw * 16) * kTcPitch * 2 +
+      static_cast<size_t>(staged_bias_rows<BIAS>()) * Lp * 4;
+  auto kernel = head_attention_tc_kernel<NT, NORM_FIRST, BIAS>;
   if (smem > 48 * 1024) {
     const int err = static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem)));
     if (err) return err;
   }
-  kernel<<<B * H, Lp / 16 * 32, smem, st>>>(qkv, bias, sbb, sbq, sbk,
-                                             bias_rows, ctx, B * L, L, D, H,
-                                             scale);
+  const int groups = (Lp / 16 + kQw - 1) / kQw;
+  kernel<<<B * H * groups, kQw * 32, smem, st>>>(
+      qkv, bias, sbb, sbq, sbk, ctx, B * L, L, D, H, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, bool NORM_FIRST>
+int launch_head_attention_tc(const __nv_bfloat16* qkv, const float* bias,
+                             long long sbb, long long sbq, long long sbk,
+                             __nv_bfloat16* ctx, int B, int L, int D, int H,
+                             float scale, cudaStream_t st) {
+  switch (attn_bias_mode(bias, sbq, (L + 15) & ~15)) {
+    case kBiasNone:
+      return launch_head_attention_tc_bias<NT, NORM_FIRST, kBiasNone>(
+          qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+    case kBiasKeyRow:
+      return launch_head_attention_tc_bias<NT, NORM_FIRST, kBiasKeyRow>(
+          qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+    case kBiasRows:
+      return launch_head_attention_tc_bias<NT, NORM_FIRST, kBiasRows>(
+          qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+    default:
+      return launch_head_attention_tc_bias<NT, NORM_FIRST, kBiasGlobal>(
+          qkv, bias, sbb, sbq, sbk, ctx, B, L, D, H, scale, st);
+  }
 }
 
 // The caller checks 1 <= L <= 32 * KPL and D = H * 64. bf16 runs the

@@ -20,11 +20,14 @@
 // whose value is > 0, in row-major order, (row - 1, column, 1); the rest
 // (0, 0, 0).
 //
-// Rounding: p = expf(x - max) / s with s the sum of the A*D values of
-// expf(x - max) taken in fp64 and rounded once to fp32, as the plain
-// version (heatmap_nms_plain) takes it; the fp64 sum of 1,440 fp32 terms
-// rounds to the same fp32 value in any order but at a double-rounding
-// boundary, so the map and the slots equal the plain version's bit for bit.
+// Rounding: p = expf(x - max) / s. The sum s is taken exactly: each of
+// the A*D values of expf(x - max) (in [0, 1]) is truncated to a multiple
+// of 2^-40, those integers are summed in int64 (exact, < 2^51, so in any
+// order), and the sum is rounded once to fp32. The plain version
+// (heatmap_nms_plain) takes the same steps, so the map and the slots
+// equal it bit for bit by construction, whatever order either sums in.
+// Before its one rounding, s is within A*D * 2^-40 (< 1.4e-9) of the
+// exact sum of the fp32 values.
 //
 // What bounds it: at (B = 8, 120, 12) it reads 46 KB and writes 47 KB
 // (28 ns at 3.35 TB/s), so what it costs is its serial structure. A
@@ -32,9 +35,9 @@
 // H100 80GB HBM3, 700 W) on two __syncthreads and an 8-way cross-warp
 // scan per round, a runtime i / D and i % D for every cell of every
 // round, expf taken twice per cell and a cell-by-cell zero fill.
-// This one:
+// This one, a block of kWarps = 16 warps per sample:
 //   - reads the logits once into registers (cell i = t * T + tid of the
-//     wrapped map, T = 32 WARPS threads) and takes each cell's expf once;
+//     wrapped map, T = 512 threads) and takes each cell's expf once;
 //   - works out each cell's (row, column) once, D = 12 a compile-time
 //     divisor; a round tests a cell against the peak's column set (one
 //     ballot of 12 lanes) and row range: no division per round;
@@ -46,11 +49,11 @@
 //     the last round's suppression, and writes the map once, every cell,
 //     at the end;
 //   - writes the K slots from the peaks' indices in the same launch.
-// One warp per sample (WARPS = 1) needs no barrier, but then holds 46
-// cells a lane, whose per-round work, serial in one warp, costs more than
-// the barriers save; so does running the rounds in one warp over row
-// maxima after a block-wide softmax. chip_smoke.py measures 1 to 32
-// warps.
+// 16 warps per sample is the fastest block measured at B = 8 (kernel
+// time, NVIDIA H100 80GB HBM3, 700 W; PERF.md): 1 warp 16.2 us (46 cells
+// a lane, no barrier, but each round's work serial in one warp), 4 warps
+// 7.1, 8 warps 5.2, 16 warps 5.0, 32 warps 5.9 us. Running the rounds in
+// one warp over row maxima after a block-wide softmax was slower too.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,6 +65,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kD = 12;                   // distance bins: the map's width
 constexpr int kMaxCells = 32 * 46;       // (A + 2) * D for A <= 120
 constexpr int kMaxK = 32;                // slots are written by one warp
+constexpr int kWarps = 16;               // a sample's block
+constexpr float kFixed = 0x1p40f;        // the sum's fixed-point scale
 
 // The warp's best (value, index) pair, in every lane: the largest value,
 // then the lowest index among the lanes that hold it. Values are >= 0 (a
@@ -90,18 +95,17 @@ __device__ __forceinline__ int src_row(int y, int A) {
   return y == 0 ? A - 1 : (y == A + 1 ? 0 : y - 1);
 }
 
-template <int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(kWarps * 32)
 heatmap_nms_kernel(const float* __restrict__ logits, float* __restrict__ out,
                    long long* __restrict__ slots,
                    unsigned char* __restrict__ valid, int B, int A, int K,
                    float sigma_x, float sigma_y) {
-  constexpr int T = WARPS * 32;
+  constexpr int T = kWarps * 32;
   constexpr int CPT = (kMaxCells + T - 1) / T;   // cells per thread
   static_assert(CPT <= 64, "masks are 64-bit");
-  __shared__ float red_v[2][WARPS];
-  __shared__ int red_i[2][WARPS];
-  __shared__ double red_s[WARPS];
+  __shared__ float red_v[2][kWarps];
+  __shared__ int red_i[2][kWarps];
+  __shared__ long long red_s[kWarps];
   __shared__ int peaks[kMaxK];
   __shared__ float peak_v[kMaxK];        // the map's value at each peak
   const int b = blockIdx.x;
@@ -124,30 +128,28 @@ heatmap_nms_kernel(const float* __restrict__ logits, float* __restrict__ out,
     }
   }
   mx = warp_max(mx);
-  if constexpr (WARPS > 1) {
-    if (lane == 0) red_v[0][warp] = mx;
-    __syncthreads();
-    mx = warp_max(lane < WARPS ? red_v[0][lane] : -INFINITY);
-  }
-  double s = 0.0;                        // the A*D cells; wrap rows excluded
+  if (lane == 0) red_v[0][warp] = mx;
+  __syncthreads();
+  mx = warp_max(lane < kWarps ? red_v[0][lane] : -INFINITY);
+  long long s = 0;                       // the A*D cells; wrap rows excluded
 #pragma unroll
   for (int t = 0; t < CPT; ++t) {
     const int i = t * T + tid;
     if (i < N) {
       p[t] = expf(__fsub_rn(p[t], mx));
-      if (row[t] >= 1 && row[t] <= A) s += static_cast<double>(p[t]);
+      if (row[t] >= 1 && row[t] <= A)    // truncated to a multiple of 2^-40
+        s += static_cast<long long>(__fmul_rn(p[t], kFixed));
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-  if constexpr (WARPS > 1) {
-    if (lane == 0) red_s[warp] = s;
-    __syncthreads();
-    s = lane < WARPS ? red_s[lane] : 0.0;
+  if (lane == 0) red_s[warp] = s;
+  __syncthreads();
+  s = lane < kWarps ? red_s[lane] : 0;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-  }
-  const float sf = static_cast<float>(s);
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  // s < 2^51 converts to double exactly, then rounds once to fp32
+  const float sf = static_cast<float>(static_cast<double>(s) / 0x1p40);
 #pragma unroll
   for (int t = 0; t < CPT; ++t) p[t] = __fdiv_rn(p[t], sf);
 
@@ -165,13 +167,11 @@ heatmap_nms_kernel(const float* __restrict__ logits, float* __restrict__ out,
       if (i < N && (v > bv || bi == 0x7fffffff)) { bv = v; bi = i; }
     }
     warp_argmax(bv, bi);
-    if constexpr (WARPS > 1) {
-      if (lane == 0) { red_v[r & 1][warp] = bv; red_i[r & 1][warp] = bi; }
-      __syncthreads();                   // round r + 1 writes the other half
-      bv = lane < WARPS ? red_v[r & 1][lane] : 0.f;
-      bi = lane < WARPS ? red_i[r & 1][lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-    }
+    if (lane == 0) { red_v[r & 1][warp] = bv; red_i[r & 1][warp] = bi; }
+    __syncthreads();                     // round r + 1 writes the other half
+    bv = lane < kWarps ? red_v[r & 1][lane] : 0.f;
+    bi = lane < kWarps ? red_i[r & 1][lane] : 0x7fffffff;
+    warp_argmax(bv, bi);
     const int idx = bi < N ? bi : 0;     // NaN logits select nothing
     if (tid == 0) peaks[r] = idx;
     if (idx % T == tid) {                // the owner: the map's value there
@@ -200,8 +200,7 @@ heatmap_nms_kernel(const float* __restrict__ logits, float* __restrict__ out,
     if (i < N) o[i] = (sel >> t) & 1 ? fmaxf(p[t], 0.f) : 0.f;
   }
 
-  if constexpr (WARPS > 1) __syncthreads();
-  else __syncwarp();
+  __syncthreads();
   if (warp != 0) return;
   // slot of peak r, in lane r: a peak on rows 1..A whose map value is > 0
   // and that no earlier round took
@@ -230,48 +229,25 @@ heatmap_nms_kernel(const float* __restrict__ logits, float* __restrict__ out,
   }
 }
 
-template <int WARPS>
-int launch(const float* logits, float* out, long long* slots,
-           unsigned char* valid, int B, int A, int K, float sigma_x,
-           float sigma_y, cudaStream_t st) {
-  heatmap_nms_kernel<WARPS><<<B, WARPS * 32, 0, st>>>(
-      logits, out, slots, valid, B, A, K, sigma_x, sigma_y);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // logits (B, A, D) fp32 contiguous -> out (B, A+2, D) fp32, slots (2, B,
 // K) int64 (angle index, distance index) and valid (B, K) bool, all
-// contiguous. warps: a sample's block, 1 (one warp per sample) or 4, 8,
-// 16 or 32 warps. Returns cudaGetLastError() after the launch, or -1 for
+// contiguous. Returns cudaGetLastError() after the launch, or -1 for
 // arguments it does not take (D != 12, (A + 2) * 12 > 1472 cells, K
-// outside 1..32, another warp count).
+// outside 1..32).
 int etp_heatmap_nms(const float* logits, float* out, long long* slots,
                     unsigned char* valid, int B, int A, int D, int K,
-                    float sigma_x, float sigma_y, int warps, void* stream) {
+                    float sigma_x, float sigma_y, void* stream) {
   if (B < 1 || A < 1 || D != kD || (A + 2) * kD > kMaxCells || K < 1 ||
       K > kMaxK)
     return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (warps == 1)
-    return launch<1>(logits, out, slots, valid, B, A, K, sigma_x, sigma_y,
-                     st);
-  if (warps == 4)
-    return launch<4>(logits, out, slots, valid, B, A, K, sigma_x, sigma_y,
-                     st);
-  if (warps == 8)
-    return launch<8>(logits, out, slots, valid, B, A, K, sigma_x, sigma_y,
-                     st);
-  if (warps == 16)
-    return launch<16>(logits, out, slots, valid, B, A, K, sigma_x, sigma_y,
-                      st);
-  if (warps == 32)
-    return launch<32>(logits, out, slots, valid, B, A, K, sigma_x, sigma_y,
-                      st);
-  return -1;
+  heatmap_nms_kernel<<<B, kWarps * 32, 0, static_cast<cudaStream_t>(
+                                              stream)>>>(
+      logits, out, slots, valid, B, A, K, sigma_x, sigma_y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

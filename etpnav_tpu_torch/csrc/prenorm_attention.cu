@@ -26,11 +26,12 @@
 //      three weights, with the bias epilogue, writing q, k, v (3, M, D) in
 //      the natural (B, L, H*hd) layout;
 //   3. attention (head_attention_tc_kernel in bf16: a grid of (sample,
-//      head, query group), one 16-row query tile per warp; q, k, v of the
-//      head (L <= 64 rows of hd = 64) copied into shared memory by
-//      cp.async; each warp scores its rows over all keys on tensor cores,
-//      so the softmax max is the row's own, as in the Pallas kernel, and
-//      p is rounded once, unnormalised, in the fragments);
+//      head, query group of up to 4 tiles; at L <= 64 one group), one
+//      16-row query tile per warp; q, k, v of the head (L <= 64 rows of
+//      hd = 64) copied into shared memory by cp.async; each warp scores
+//      its rows over all keys on tensor cores, so the softmax max is the
+//      row's own, as in the Pallas kernel, and p is rounded once,
+//      unnormalised, in the fragments);
 //   4. the output projection as a GEMM with the bias + residual epilogue.
 //
 // What bounds it: at the CLIP shape (B*12 = 96 images, L = 50, D = 768)
@@ -140,16 +141,16 @@ int etp_round_bf16(const void* src, void* dst, int n, void* stream) {
 }
 
 // out (M, N) bf16 = a (M, K) bf16 . w (N, K)^T bf16 + bias (N,) fp32,
-// rounded once: the chains' bf16 GEMM alone, for measuring it. tile 0
-// picks the tile configuration by shape, 1-4 name one (dense.cuh). Needs
+// rounded once: the chains' bf16 GEMM alone, for measuring it, with the
+// tile configuration the chains pick for this shape (dense.cuh). Needs
 // N % 64 == 0, K % 64 == 0 and 16-byte aligned a and w (-2 otherwise).
 int etp_gemm_bf16(const void* a, const void* w, const void* bias, void* out,
-                  int M, int N, int K, int tile, void* stream) {
+                  int M, int N, int K, void* stream) {
   if (M < 1 || N < 64 || K < 64 || N % 64 != 0 || K % 64 != 0) return -1;
   const float* bb = static_cast<const float*>(bias);
   etp::GemmArgs p{a, {w, w, w}, {bb, bb, bb}, nullptr, out, M, K, N};
-  return etp::launch_gemm_bf16_tile<__nv_bfloat16>(
-      p, 1, tile, static_cast<cudaStream_t>(stream));
+  return etp::dispatch_gemm_bf16<__nv_bfloat16>(
+      p, 1, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ its design does about it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -24,15 +24,10 @@ heatmap_nms_launches = cuda_build.LaunchCounter()
 heatmap_nms_plain_calls = cuda_build.LaunchCounter()
 
 
-#: warps of the kernel's block per sample (chip_smoke.py measures 1 to 32,
-#: which the C entry point also takes)
-NMS_WARPS = 16
-
-
 def _bind(lib: ctypes.CDLL) -> None:
     i32, vp = ctypes.c_int, ctypes.c_void_p
     lib.etp_heatmap_nms.argtypes = [vp] * 4 + [i32] * 4 + [
-        ctypes.c_float, ctypes.c_float, i32, vp]
+        ctypes.c_float, ctypes.c_float, vp]
     lib.etp_heatmap_nms.restype = ctypes.c_int
 
 
@@ -46,13 +41,16 @@ def heatmap_nms_plain(logits: torch.Tensor, max_predictions: int = 5,
                       ) -> torch.Tensor:
     """Plain version of K-NMS's map: softmax over all A*D cells, row wrap,
     then `ops.nms.heatmap_nms`. (B, A, D) logits -> (B, A+2, D) fp32 map.
-    The softmax is exp(x - max) / s with s summed in fp64 and rounded
-    once to fp32, the kernel's rounding (`csrc/heatmap_nms.cu`)."""
+    The softmax is e / s, e = exp(x - max), with the kernel's exact sum
+    (`csrc/heatmap_nms.cu`): each e truncated to a multiple of 2^-40, the
+    integers summed in int64, the sum rounded once to fp32. It is the
+    same in any order, so the kernel's map equals this one bit for bit."""
     heatmap_nms_plain_calls.add()
     B, A, D = logits.shape
     x = logits.reshape(B, A * D).float()
     e = torch.exp(x - x.amax(dim=1, keepdim=True))
-    prob = (e / e.double().sum(dim=1, keepdim=True).float()).reshape(B, A, D)
+    fixed = (e * 2.0 ** 40).to(torch.int64).sum(dim=1, keepdim=True)
+    prob = (e / (fixed.double() / 2.0 ** 40).float()).reshape(B, A, D)
     # wrap: row A-1 on top, row 0 at the bottom
     wrapped = torch.cat([prob[:, -1:], prob, prob[:, :1]], dim=1)
     return heatmap_nms(wrapped, max_predictions, sigma)
@@ -69,14 +67,13 @@ def heatmap_candidates_plain(logits: torch.Tensor, max_predictions: int = 5,
 
 
 def heatmap_nms_fused(logits: torch.Tensor, max_predictions: int = 5,
-                      sigma: Tuple[float, float] = (7.0, 5.0),
-                      warps: Optional[int] = None) -> Candidates:
+                      sigma: Tuple[float, float] = (7.0, 5.0)
+                      ) -> Candidates:
     """(B, A, D) fp32 logits -> (nms_map (B, A+2, D) fp32, the sparse
     wrapped NMS map `fused_heatmap_nms` returns; angle_idx, dist_idx
     (B, K) int64 and valid (B, K) bool, the slots `extract_candidates`
     gives of its rows 1..A). CPU tensors run the plain version; CUDA
-    tensors launch the kernel, which writes all four, or raise. `warps`
-    (default NMS_WARPS) is the kernel's threads per sample."""
+    tensors launch the kernel, which writes all four, or raise."""
     if logits.device.type == "cpu":
         return heatmap_candidates_plain(logits, max_predictions, sigma)
     if logits.device.type != "cuda":
@@ -98,7 +95,7 @@ def heatmap_nms_fused(logits: torch.Tensor, max_predictions: int = 5,
         err = lib.etp_heatmap_nms(
             logits.data_ptr(), out.data_ptr(), slots.data_ptr(),
             valid.data_ptr(), B, A, D, K, float(sigma[0]), float(sigma[1]),
-            NMS_WARPS if warps is None else int(warps), stream)
+            stream)
     cuda_build.check(err, "heatmap_nms_fused")
     heatmap_nms_launches.add()
     return out, slots[0], slots[1], valid

@@ -47,7 +47,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.etp_prenorm_attention.restype = ctypes.c_int
     lib.etp_round_bf16.argtypes = [vp, vp, i32, vp]
     lib.etp_round_bf16.restype = ctypes.c_int
-    lib.etp_gemm_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+    lib.etp_gemm_bf16.argtypes = [vp] * 4 + [i32] * 3 + [vp]
     lib.etp_gemm_bf16.restype = ctypes.c_int
 
 
@@ -83,13 +83,13 @@ def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor,
     return (a.float() @ w.float().t() + bias).to(torch.bfloat16)
 
 
-def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              tile: int = 0) -> torch.Tensor:
+def gemm_bf16(a: torch.Tensor, w: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
     """out (M, N) = a (M, K) . w (N, K)^T + bias (N,) on the bf16 GEMM of
-    K-PRENORM and K-BLOCK (`csrc/dense.cuh`: wgmma fed by TMA), for
-    measuring it alone; `tile` 0 picks the tile configuration by shape,
-    1-4 name one. CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
+    K-PRENORM and K-BLOCK (`csrc/dense.cuh`: wgmma fed by TMA), with the
+    tile configuration the chains pick for this shape, for measuring it
+    alone. CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
     if a.device.type == "cpu":
         return gemm_bf16_plain(a, w, bias)
     M, K = a.shape
@@ -108,7 +108,7 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     lib = cuda_build.load("prenorm_attention")
     with torch.cuda.device(a.device):
         err = lib.etp_gemm_bf16(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                                out.data_ptr(), M, N, K, int(tile),
+                                out.data_ptr(), M, N, K,
                                 torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "gemm_bf16")
     gemm_bf16_launches.add()

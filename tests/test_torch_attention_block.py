@@ -210,7 +210,7 @@ def test_bf16_gemm_is_wgmma_fed_by_tma():
     dense = (ROOT / "etpnav_tpu_torch/csrc/dense.cuh").read_text()
     code = "\n".join(line.split("//")[0] for line in dense.splitlines())
     assert "cublas" not in code.lower()
-    for ptx in ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
                 "wgmma.fence.sync.aligned", "wgmma.commit_group.sync.aligned",
                 "wgmma.wait_group.sync.aligned",
                 "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier",
@@ -236,8 +236,8 @@ def test_bf16_gemm_is_wgmma_fed_by_tma():
     assert "CU_TENSOR_MAP_SWIZZLE_128B" in code and "(1ull << 62)" in code
     branch = code[code.index("int launch_gemm(const GemmArgs& p"):]
     branch = branch[:branch.index("} else {")]
-    assert "launch_gemm_bf16_tile<TO>(p, parts, 0, st)" in branch
-    tiles = code[code.index("int launch_gemm_bf16_tile("):]
+    assert "dispatch_gemm_bf16<TO>(p, parts, st)" in branch
+    tiles = code[code.index("int dispatch_gemm_bf16("):]
     assert "launch_gemm_bf16<TO, 128, 128, 3, 2>" in tiles
     assert "gemm_bf16_kernel<TO, BM, BN, STAGES, MIN_BLOCKS>" in code
 
