@@ -35,6 +35,12 @@ Phases, each reported on its own lines:
      K-ATT with attention dropout 0.1 at the learn step's shapes, and its
      p_drop = 0 launch with the row log-sum-exp bit for bit against the
      serving launch;
+  3d. the bounded barrier wait of csrc/dense.cuh: a child process
+     (`--trap-child`) launches the bf16 GEMM built with one mbarrier
+     arrival withheld (ETP_TEST_WITHHOLD_ARRIVE, built beside phase 2);
+     it must exit with a launch error whose fault record names the
+     barrier (full[0], parity 0), and this process's context stays
+     clean;
   3c. K-ATT-BWD against its plain version at the learn step's four
      attention shapes (text, pano, cross and graph self-attention at
      G = 96, B*T = 160), fp32 and bf16, with and without dropout 0.1,
@@ -137,11 +143,26 @@ Phases, each reported on its own lines:
      step (19 -> 27 -> 29) in turns; (e) perceive with uint16 depth
      against the dequantized and the fp32 depth, the upload's bytes
      halved;
+  12. the legacy DAgger trainer: K-ATT (dropout 0 and 0.1) and K-ATT-BWD
+     against their plain versions at the recurrent VLN-BERT's fp32 shapes
+     with its -1e9 mask bias, (Lq, Lk) = (80, 80), (7, 79) and (7, 7) at
+     B = 8, beside SDPA and the bound; then `run_config` of
+     configs/dagger_r2r.yaml (full R2R width; only the counts of
+     DAGGER_CUTS are cut, and printed) on GeometricNavEnv(8), each stage
+     with every count at 0 before it and read after, exact launch counts
+     and no plain call: train DAGGER.policy rec_vlnbert, train cma, eval
+     rec_vlnbert; K-ATT per nav step and K-ATT + K-ATT-BWD per update
+     batch against the formula, the update's p50 at T = 60 and its peak
+     memory, collect s per iteration, the eval's SR / SPL; one nav_step
+     and one sequence_nll with its gradients, kernels against plain
+     versions on the card;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
 Any failure raises, so the script exits non-zero and prints no result;
-it does the same when no CUDA device is present.
+it does the same when no CUDA device is present. `--soak-gemm N` runs
+only the GEMM soak at N launches (for a run under compute-sanitizer);
+`--trap-child LIB` is phase 3d's child.
 """
 
 from __future__ import annotations
@@ -794,15 +815,19 @@ GEMM_SOAK_LAUNCHES = 30000
 GEMM_SOAK_LIMIT_S = 60.0
 
 
-def soak_gemm(card: str) -> dict:
-    """The GEMM's mbarrier / TMA ring run long, under a watchdog: 10,000
-    back-to-back launches of each shape of GEMM_SOAK_SHAPES (one per tile
-    configuration, ragged M), every 100th launch's output held to the
-    first launch's, bit for bit, and that one to the plain version.
-    A launch that never finishes (a deadlocked ring) makes the host's
-    polling of an event run past GEMM_SOAK_LIMIT_S: the script then
-    reports it and exits non-zero at once, since a hung kernel cannot be
-    cancelled from the host."""
+def soak_gemm(card: str, launches: int = GEMM_SOAK_LAUNCHES,
+              limit_s: float = GEMM_SOAK_LIMIT_S) -> dict:
+    """The GEMM's mbarrier / TMA ring run long, under a watchdog:
+    `launches` back-to-back launches spread over the shapes of
+    GEMM_SOAK_SHAPES (one per tile configuration, ragged M), every 100th
+    launch's output (and the last) held to the first launch's, bit for
+    bit, and that one to the plain version. A barrier wait that does not
+    end traps after csrc/dense.cuh's kMbarTimeoutNs: the launch error is
+    reported with the fault record that names the barrier. A launch that
+    never finishes all the same makes the host's polling of an event run
+    past `limit_s`: the script then reports it and exits non-zero at
+    once, since a hung kernel cannot be cancelled from the host."""
+    from etpnav_tpu_torch.ops.cuda_build import dense_fault_report
     from etpnav_tpu_torch.ops.fused_prenorm import gemm_bf16, gemm_bf16_plain
     g = torch.Generator(device="cuda").manual_seed(7)
     cases = []
@@ -813,20 +838,27 @@ def soak_gemm(card: str) -> dict:
         first = gemm_bf16(a, w, bias)
         want = gemm_bf16_plain(a, w, bias)
         cases.append((a, w, bias, first, want))
-    n_each = GEMM_SOAK_LAUNCHES // len(cases)
+    n_each = launches // len(cases)
     differ = torch.zeros(len(cases), dtype=torch.int64, device="cuda")
     t0 = time.perf_counter()
     for i in range(n_each):
         for j, (a, w, bias, first, _) in enumerate(cases):
             out = gemm_bf16(a, w, bias)
-            if i % 100 == 99:
+            if i % 100 == 99 or i == n_each - 1:
                 differ[j] += (out != first).sum()
     done = torch.cuda.Event()
     done.record()
-    while not done.query():
-        if time.perf_counter() - t0 > GEMM_SOAK_LIMIT_S:
-            print(f"GEMM soak: {GEMM_SOAK_LAUNCHES} launches not finished "
-                  f"after {GEMM_SOAK_LIMIT_S:.0f} s: the ring hangs "
+    while True:
+        try:
+            if done.query():
+                break
+        except RuntimeError as e:
+            print(f"GEMM soak: launch error {e!r}; barrier fault record: "
+                  f"{dense_fault_report()} [{card}]", flush=True)
+            os._exit(1)
+        if time.perf_counter() - t0 > limit_s:
+            print(f"GEMM soak: {launches} launches not finished "
+                  f"after {limit_s:.0f} s: the ring hangs "
                   f"[{card}]", flush=True)
             os._exit(1)
         time.sleep(0.01)
@@ -844,6 +876,110 @@ def soak_gemm(card: str) -> dict:
         f"{seconds:.2f} s, no hang, outputs unchanged [{card}]")
     return {"launches": n_each * len(cases), "seconds": seconds,
             "shapes": [list(x) for x in GEMM_SOAK_SHAPES]}
+
+
+#: the define under which csrc/dense.cuh's producer withholds its first
+#: arrival on full[0] in block 0 (a test-only broken ring)
+TRAP_DEFINE = "ETP_TEST_WITHHOLD_ARRIVE"
+# the trapped child's time limit: its build is done, its launch traps
+# after kMbarTimeoutNs (4 s)
+TRAP_LIMIT_S = 120
+TRAP_EXIT = 3
+TRAP_WANT = "timed out in mbar_wait on full[0], parity 0"
+
+
+def start_trap_build(tmp: str) -> subprocess.Popen:
+    """nvcc of csrc/prenorm_attention.cu (which includes csrc/dense.cuh)
+    with TRAP_DEFINE into `tmp`, started beside the main build."""
+    from etpnav_tpu_torch.ops import cuda_build
+    out = os.path.join(tmp, "libprenorm_attention_trap.so")
+    proc = subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-D{TRAP_DEFINE}",
+         "-o", out, os.path.join(cuda_build.CSRC_DIR,
+                                 "prenorm_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.lib_path = out
+    return proc
+
+
+def trap_child(lib_path: str) -> None:
+    """`chip_smoke.py --trap-child LIB`: K-PRENORM's library built with
+    TRAP_DEFINE stands in for the real one; one launch of its GEMM must
+    end in a launch error, after which the barrier fault record is
+    printed. Exits TRAP_EXIT then, 0 if the launch finished."""
+    import ctypes
+
+    from etpnav_tpu_torch.ops import cuda_build, fused_prenorm
+    lib = ctypes.CDLL(lib_path)
+    fused_prenorm._bind(lib)
+    cuda_build._libs["prenorm_attention"] = lib
+    g = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.randn(640, 768, generator=g, device="cuda").bfloat16()
+    w = torch.randn(2304, 768, generator=g, device="cuda").bfloat16()
+    bias = torch.zeros(2304, device="cuda")
+    t0 = time.perf_counter()
+    try:
+        fused_prenorm.gemm_bf16(a, w, bias)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        msg = " ".join(str(e).split())
+        print(f"trap child: launch error after "
+              f"{time.perf_counter() - t0:.1f} s: {msg[:200]}", flush=True)
+        print(f"trap child: fault record: {cuda_build.dense_fault_report()}",
+              flush=True)
+        os._exit(TRAP_EXIT)
+    print("trap child: the launch finished", flush=True)
+    os._exit(0)
+
+
+def check_barrier_trap(card: str, proc: subprocess.Popen) -> dict:
+    """The bounded barrier wait of csrc/dense.cuh: a child process launches
+    the GEMM built with one arrival withheld (`trap_child`); it must exit
+    with a launch error whose fault record names the barrier it waited
+    on (block 0's consumers on full[0], parity 0), while this process's
+    own CUDA context stays clean."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -D{TRAP_DEFINE} failed:\n{out}")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trap-child",
+         proc.lib_path], capture_output=True, text=True,
+        timeout=TRAP_LIMIT_S)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in child.stdout.splitlines()
+             if ln.startswith("trap child:")]
+    if child.returncode != TRAP_EXIT or not any(TRAP_WANT in ln
+                                                for ln in lines):
+        raise AssertionError(
+            f"barrier trap: child rc {child.returncode}, stdout "
+            f"{child.stdout[-2000:]!r}, stderr {child.stderr[-2000:]!r}")
+    x = torch.arange(4, device="cuda", dtype=torch.float32)
+    if (x + 1).sum().item() != 10.0:
+        raise AssertionError("barrier trap: the parent's context is spoiled")
+    for ln in lines:
+        log(f"{ln} [{card}]")
+    log(f"barrier trap: the child (rc {child.returncode}) named its "
+        f"barrier in {seconds:.1f} s; this process's context is clean "
+        f"[{card}]")
+    return {"rc": child.returncode, "seconds": seconds, "lines": lines}
+
+
+def soak_main(launches: int) -> int:
+    """`chip_smoke.py --soak-gemm N`: build K-PRENORM's library alone and
+    run `soak_gemm` at N launches, for a run under compute-sanitizer;
+    prints the result as one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    from etpnav_tpu_torch.ops import cuda_build
+    card = card_line()
+    secs = cuda_build.build_all(["prenorm_attention"])
+    log(f"build: prenorm_attention in {secs:.2f} s")
+    res = soak_gemm(card, launches, limit_s=3000.0)
+    print(json.dumps({"soak_gemm": res, "card": card}), flush=True)
+    return 0
 
 
 def bf16_tol(want: torch.Tensor) -> float:
@@ -3615,6 +3751,427 @@ def feed_phase(card: str, cfg, host_params, counters, tmp: str,
 # ---------------------------------------------------------------------------
 
 # the design of the bf16 attention kernels
+# ---------------------------------------------------------------------------
+# phase 12: the legacy DAgger trainer at R2R width
+# ---------------------------------------------------------------------------
+
+DAGGER_YAML = "configs/dagger_r2r.yaml"
+# the counts cut for one chip call (the yaml's: iterations 10,
+# episodes_per_iter 128, epochs 4, max_steps 60); the widths, the batch
+# size, the policies and the rest of the yaml stay as they are
+DAGGER_CUTS = {"iterations": 1, "episodes_per_iter": 8, "epochs": 1,
+               "max_steps": 10}
+DAGGER_ENVS = 8
+DAGGER_EVAL_EPISODES = 8
+# the update timed at the yaml's own T = max_steps = 60
+DAGGER_TIMED_T = 60
+DAGGER_TIMED = 3
+# card, kernels against plain versions, fp32, the same weights and batch:
+# nav_step's valid logits and new state, and sequence_nll's loss, max
+# |diff| <= DAGGER_REL_TOL * max |plain| (fp32 sums in another order
+# through 9 + 4 BERT layers of 768); sequence_nll's gradients per tensor
+# as phase 7b's, LEARN_REL_TOL * max |plain gradient| + 1e-6, over the
+# recurrence of T steps
+DAGGER_REL_TOL = 1e-4
+
+
+def dagger_config(opts: dict):
+    """configs/dagger_r2r.yaml with `opts` ({"DAGGER.key": value}) laid
+    over it, as `run --exp-config ... DAGGER.key=value` loads it (PyYAML;
+    phase 1 reports it)."""
+    from etpnav_tpu_torch import config_yaml
+    return config_yaml.load_config(DAGGER_YAML, dict(opts))
+
+
+def dagger_attentions(cfg) -> dict:
+    """K-ATT launches per call of each program of the DAgger path at
+    `cfg`, as the code runs them: the recurrent VLN-BERT's language stack
+    and its nav step (a cross- and a self-attention per LXRT layer; the
+    depths from DAGGER, else the planner's); CLIP (its blocks and the cls
+    row) per encode_image_uint8; the waypoint TRM per encode_panorama,
+    beside CLIP's."""
+    d, p = cfg.dagger, cfg.planner
+    la = d.la_layers if d.la_layers > 0 else p.num_l_layers
+    vl = d.vl_layers if d.vl_layers > 0 else p.num_x_layers
+    return {"language": la, "nav": 2 * vl, "clip": cfg.clip.layers,
+            "waypoint": cfg.waypoint.num_layers}
+
+
+@contextlib.contextmanager
+def dagger_calls():
+    """Counts the DAgger path's program calls (the recurrent VLN-BERT's
+    encode_language / nav_step / sequence_nll with its T, CLIP's
+    encode_image_uint8, encode_panorama) by wrapping them in their
+    modules, and collects the trainers the runner builds and the seconds
+    of each collect and update step."""
+    from etpnav_tpu_torch.models import clip_vit
+    from etpnav_tpu_torch.models import rec_vlnbert as rvb
+    from etpnav_tpu_torch.training import agent as agent_mod
+    from etpnav_tpu_torch.training import dagger
+    calls, seq_t, trainers = collections.Counter(), [], []
+    times = {"collect_s": [], "update_ms": []}
+    saved = [(rvb, "encode_language"), (rvb, "nav_step"),
+             (rvb, "sequence_nll"), (clip_vit, "encode_image_uint8"),
+             (agent_mod, "encode_panorama")]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    methods = [(c, a, c.__dict__[a]) for c in (dagger.RecVLNBertDagger,
+                                               dagger.DaggerTrainer)
+               for a in ("__init__", "collect", "update_step")]
+
+    def seq(*a, **kw):
+        seq_t.append(a[8].shape[1])               # teacher (B, T)
+        return saved[2][2](*a, **kw)
+
+    def wrap(cls, attr, fn):
+        def init(self, *a, **kw):
+            fn(self, *a, **kw)
+            trainers.append(self)
+
+        def timed(self, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            if attr == "update_step":
+                float(out)
+                times["update_ms"].append((time.perf_counter() - t0) * 1e3)
+            else:
+                sync()
+                times["collect_s"].append(time.perf_counter() - t0)
+            return out
+        return init if attr == "__init__" else timed
+
+    names = ("language", "nav", "sequence", "clip", "panorama")
+    for (m, a, fn), n in zip(saved, names):
+        setattr(m, a, seq if n == "sequence" else counted(fn, calls, n))
+    for c, a, fn in methods:
+        setattr(c, a, wrap(c, a, fn))
+    try:
+        yield calls, seq_t, trainers, times
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+        for c, a, fn in methods:
+            setattr(c, a, fn)
+
+
+def dagger_bwd(per: dict, T: int) -> int:
+    """K-ATT-BWD launches of one sequence_nll backward over T steps: every
+    attention of the language stack and of the T nav steps but one, the
+    last step's last self-attention, whose output reaches only the final
+    state, which no loss term reads (the logits are its raw scores,
+    taken beside the kernel)."""
+    return per["language"] + per["nav"] * T - 1
+
+
+def dagger_counts(name: str, counters, calls, seq_t, per: dict) -> dict:
+    """The launch counts since the counters' reset, exactly what the
+    DAgger path's calls make: K-ATT per program call, K-ATT-BWD
+    `dagger_bwd(per, T)` per sequence_nll (every one is backpropagated),
+    K-NMS per encode_panorama; plain versions and the other kernels 0."""
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["attention_fwd"] = (
+        per["language"] * calls["language"] + per["nav"] * calls["nav"]
+        + per["clip"] * calls["clip"]
+        + per["waypoint"] * calls["panorama"])
+    want["attention_bwd"] = sum(dagger_bwd(per, t) for t in seq_t)
+    want["heatmap_nms_fused"] = calls["panorama"]
+    if counts != want:
+        raise AssertionError(f"DAgger {name}: launches {counts} != {want} "
+                             f"for {dict(calls)}, sequence T {seq_t}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def dagger_parity(card: str, tr, batch) -> dict:
+    """One nav_step and one sequence_nll with its gradients on the
+    trainer's weights (R2R width, fp32) and a stored batch, kernels
+    against their plain versions on the card, dropout off."""
+    from etpnav_tpu_torch.models import rec_vlnbert as rvb
+    cfg = tr.cfg
+    args = [tr._t(a) for a in batch]
+    tokens, lmask, rgb, dep, ang, cmask = args[:6]
+
+    def run_once():
+        with torch.no_grad():
+            state, feats = rvb.encode_language(tr.params, cfg, tokens, lmask)
+            logits, new = rvb.nav_step(tr.params, cfg, state, feats, lmask,
+                                       rgb[:, 0], dep[:, 0], ang[:, 0],
+                                       cmask[:, 0])
+        tr.params.zero_grad(set_to_none=True)
+        loss = rvb.sequence_nll(tr.params, cfg, *args, train=False)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in tr.params.named_parameters()
+                 if p.grad is not None}
+        tr.params.zero_grad(set_to_none=True)
+        return logits, new, loss.detach(), grads
+
+    got = run_once()
+    restore = attention_on_plain_versions()
+    try:
+        want = run_once()
+    finally:
+        restore()
+    valid = cmask[:, 0]
+    res = {}
+    for key, a, b in (("logits", got[0][valid], want[0][valid]),
+                      ("state", got[1], want[1]), ("loss", got[2], want[2])):
+        err = (a - b).abs().max().item()
+        tol = DAGGER_REL_TOL * b.abs().max().item()
+        if not torch.isfinite(a).all() or err > tol:
+            raise AssertionError(f"DAgger parity {key}: {err:.3g} > "
+                                 f"{tol:.3g}")
+        res[key] = {"max_abs_diff": err, "tol": tol}
+    if not torch.equal(got[0][~valid], want[0][~valid]):
+        raise AssertionError("DAgger parity: masked logits differ")
+    res["grads"] = grad_gap(got[3], want[3], LEARN_REL_TOL, 1e-6)
+    log(f"DAgger parity (T {batch[2].shape[1]}, B {batch[0].shape[0]}, "
+        f"kernels vs plain on the card, fp32): {json.dumps(res)} [{card}]")
+    return res
+
+
+def dagger_attention_cases(dev, B: int = 8):
+    """(name, q, k, v, bias) of the recurrent VLN-BERT's attentions at R2R
+    width (12 heads of 64, fp32, B = DAGGER.batch_size): the language
+    stack over 80 tokens; the nav step's cross-attention of the 7 rows
+    [state; STOP; 5 candidates] into the 79 language keys after slot 0;
+    its self-attention over those 7 rows. The head-shared bias is
+    rec_vlnbert's: 0 or NEG_INF = -1e9 per key, instructions of ragged
+    length and candidate slots masked at random (the state row is always
+    valid)."""
+    from etpnav_tpu_torch.models.rec_vlnbert import mask_bias
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def natural(L, H=12, hd=64):
+        x = torch.randn(B, L, H * hd, generator=g, device=dev) * 0.5
+        return x.view(B, L, H, hd).transpose(1, 2)
+
+    lens = torch.randint(8, 81, (B,), generator=g, device=dev)
+    lmask = torch.arange(80, device=dev)[None] < lens[:, None]
+    smask = torch.rand(B, 7, generator=g, device=dev) < 0.7
+    smask[:, :2] = True                   # the state row and STOP
+    return [("lang_80", natural(80), natural(80), natural(80),
+             mask_bias(lmask)),
+            ("nav_cross_7x79", natural(7), natural(79), natural(79),
+             mask_bias(lmask[:, 1:])),
+            ("nav_self_7x7", natural(7), natural(7), natural(7),
+             mask_bias(smask))]
+
+
+def check_dagger_attention(card: str, device: str = "cuda") -> dict:
+    """K-ATT (dropout 0 and 0.1) and K-ATT-BWD (dropout 0 and 0.1, no
+    d(bias)) at the DAgger path's shapes (`dagger_attention_cases`),
+    against their plain versions on the card: fp32 outputs at TOL, the
+    gradients at `bwd_tol`; rows and keys that are not tile multiples
+    and the -1e9 bias in the row max. Times: the kernels (CUDA events and
+    device time), the plain versions, the bound, SDPA forward and SDPA's
+    backward alone with the same float mask and dropout rate."""
+    import torch.nn.functional as F
+
+    from etpnav_tpu_torch.ops.fused_attention import (
+        attention_bwd,
+        attention_bwd_plain,
+        attention_fwd,
+        attention_plain,
+        draw_seed_offset,
+    )
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    dtype = torch.float32
+    rows = {}
+    for name, q, k, v, bias in dagger_attention_cases(dev):
+        scale = 0.125
+        dout = torch.randn(q.shape, generator=gen, device=dev)
+        mask = bias.expand(q.shape[0], 1, q.shape[2], k.shape[2])
+        for p_drop in (0.0, 0.1):
+            so = draw_seed_offset(gen, dev) if p_drop else None
+            out, lse = attention_fwd(q, k, v, bias, scale, p_drop, so,
+                                     return_lse=True)
+            want, lse_want = attention_plain(q, k, v, bias, scale, p_drop,
+                                             so, return_lse=True)
+            args = (q, k, v, bias, out, lse, dout, scale, p_drop, so,
+                    False)
+            got_g = attention_bwd(*args)
+            want_g = attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs = {"out": (out - want).abs().max().item(),
+                    "lse": (lse - lse_want).abs().max().item()}
+            if not torch.isfinite(out).all() or errs["out"] > TOL[dtype] \
+                    or errs["lse"] > 1e-4:
+                raise AssertionError(f"K-ATT {name} p_drop={p_drop}: "
+                                     f"{errs}")
+            for gname, a, b in zip(("dq", "dk", "dv"), got_g, want_g):
+                err = (a - b).abs().max().item()
+                if not torch.isfinite(a).all() or err > bwd_tol(b, dtype):
+                    raise AssertionError(
+                        f"K-ATT-BWD {name} p_drop={p_drop} {gname}: max "
+                        f"abs err {err} > {bwd_tol(b, dtype)}")
+                errs[gname] = err
+
+            def fwd():
+                return attention_fwd(q, k, v, bias, scale, p_drop, so,
+                                     return_lse=True)
+
+            def bwd():
+                return attention_bwd(*args)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, dropout_p=p_drop, scale=scale)
+
+            leaves = tuple(t.detach().clone().requires_grad_()
+                           for t in (q, k, v))
+            o_ret = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, dropout_p=p_drop, scale=scale)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(o_ret, leaves, dout,
+                                           retain_graph=True)
+
+            nbytes, flops = attention_work(q, k, v, bias)
+            f_bound = bound_ms(nbytes + 4 * lse.numel(), flops, dtype)
+            nbytes, flops = attention_bwd_work(q, k, bias, bool(p_drop),
+                                               False)
+            b_bound = bound_ms(nbytes, flops, dtype)
+            key = f"{name}/float32/p{p_drop}"
+            rows[key] = {
+                "shape": [list(q.shape), list(k.shape)],
+                "max_abs_err": max(errs.values()), "errs": errs,
+                "fwd": {"ms": cuda_ms(fwd), "kernel_ms": kernel_ms(fwd),
+                        "plain_ms": cuda_ms(lambda: attention_plain(
+                            q, k, v, bias, scale, p_drop, so,
+                            return_lse=True), iters=10, warmup=2),
+                        "library_ms": cuda_ms(sdpa),
+                        "library_kernel_ms": kernel_ms(sdpa),
+                        "bound_ms": f_bound[0], "bound_by": f_bound[1]},
+                "bwd": {"ms": cuda_ms(bwd, iters=20),
+                        "kernel_ms": kernel_ms(bwd),
+                        "plain_ms": cuda_ms(lambda: attention_bwd_plain(
+                            *args), iters=10, warmup=2),
+                        "library_ms": cuda_ms(sdpa_bwd, iters=20),
+                        "library_kernel_ms": kernel_ms(sdpa_bwd),
+                        "bound_ms": b_bound[0], "bound_by": b_bound[1]}}
+            del o_ret
+            log(f"K-ATT + K-ATT-BWD DAgger {key:26s} q{tuple(q.shape)} "
+                f"k{tuple(k.shape)} errs={json.dumps(errs)} "
+                f"{json.dumps({d: rows[key][d] for d in ('fwd', 'bwd')})} "
+                f"[{card}]")
+    return rows
+
+
+def dagger_phase(card: str, counters, tmp: str, device: str = "cuda",
+                 base=None) -> dict:
+    """Phase 12: `run --exp-config configs/dagger_r2r.yaml --trainer
+    DAgger` at the yaml's full R2R width (BASE r2r) on GeometricNavEnv
+    (8 envs), each stage with every count at 0 before it and read after,
+    exact launch counts and no plain call: (a) train, DAGGER.policy
+    rec_vlnbert; (b) train, DAGGER.policy cma; (c) eval of rec_vlnbert
+    (forced stop at the step cap). Only the counts of DAGGER_CUTS are cut.
+    Then on (a)'s trainer: K-ATT per nav step and K-ATT + K-ATT-BWD per
+    update batch against the formula, the update step's p50 at T = 60
+    and its peak memory, and one nav step and one sequence_nll with its
+    gradients, kernels against plain versions. `base` (a config) replaces
+    the yaml, for a rehearsal on the CPU."""
+    from etpnav_tpu_torch.run import run_config
+    t_phase = time.perf_counter()
+    opts = {f"DAGGER.{k}": v for k, v in DAGGER_CUTS.items()}
+    log(f"DAgger: {DAGGER_YAML} with the counts cut to {json.dumps(opts)}; "
+        f"{DAGGER_ENVS} envs, {DAGGER_EVAL_EPISODES} eval episodes")
+    res = {"cuts": DAGGER_CUTS, "launches": collections.Counter()}
+    for stage, policy, run_type in (("train_rec_vlnbert", "rec_vlnbert",
+                                     "train"),
+                                    ("train_cma", "cma", "train"),
+                                    ("eval_rec_vlnbert", "rec_vlnbert",
+                                     "eval")):
+        o = {**opts, "DAGGER.policy": policy,
+             "DAGGER.store_dir": os.path.join(tmp, stage)}
+        if base is None:
+            cfg = dagger_config(o)
+        else:
+            cfg = dataclasses.replace(base, dagger=dataclasses.replace(
+                base.dagger, **{k.split(".")[1]: v for k, v in o.items()}))
+        for cnt in counters.values():
+            cnt.reset()
+        reset_peak()
+        t0 = time.perf_counter()
+        with dagger_calls() as (calls, seq_t, trainers, times):
+            out = run_config(cfg, trainer="DAgger", run_type=run_type,
+                             device=device, num_envs=DAGGER_ENVS,
+                             episode_count=DAGGER_EVAL_EPISODES)
+            sync()
+        launches = dagger_counts(stage, counters, calls, seq_t,
+                                 dagger_attentions(cfg))
+        res["launches"].update(launches)
+        if run_type == "train":
+            ok = len(out) == DAGGER_CUTS["iterations"] and all(
+                np.isfinite(out))
+        else:
+            ok = out and all(np.isfinite(out[k]) for k in
+                             ("success", "spl", "ndtw"))
+        if not ok:
+            raise AssertionError(f"DAgger {stage}: {out}")
+        row = {"seconds": time.perf_counter() - t0, "result": out,
+               "calls": dict(calls), "sequence_T": seq_t,
+               "launches": launches, "collect_s": times["collect_s"],
+               "update_ms": times["update_ms"], "peak_gib": peak_gib()}
+        res[stage] = row
+        log(f"DAgger {stage}: {json.dumps(row)} [{card}]")
+        if stage == "train_rec_vlnbert":
+            tr = trainers[-1]
+    # per-call launch counts and the update's p50 at T = 60, on (a)'s
+    # trainer and its store
+    trajs = list(tr.store)
+    long = dict(trajs[0])
+    reps = -(-DAGGER_TIMED_T // len(long["teacher"]))
+    for k in ("rgb", "dep", "ang", "cmask", "teacher"):
+        long[k] = np.concatenate([long[k]] * reps)[:DAGGER_TIMED_T]
+    order = np.arange(len(trajs) + 1)
+    batch = next(tr.update_batches(trajs + [long], order))
+    T = batch[2].shape[1]
+    per = {"language": tr.cfg.la_layers, "nav": 2 * tr.cfg.vl_layers}
+    state, feats, lmask = tr._lang(batch[0])
+    sync()
+    for cnt in counters.values():
+        cnt.reset()
+    tr._nav(state, feats, lmask, *(b[:, 0] for b in batch[2:6]))
+    sync()
+    nav_counts = {k: c.value for k, c in counters.items() if c.value}
+    if nav_counts != {"attention_fwd": per["nav"]}:
+        raise AssertionError(f"DAgger nav step: launches {nav_counts}")
+    ms = []
+    reset_peak()
+    for _ in range(1 + DAGGER_TIMED):
+        for cnt in counters.values():
+            cnt.reset()
+        sync()
+        t0 = time.perf_counter()
+        loss = float(tr.update_step(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        upd = {k: c.value for k, c in counters.items() if c.value}
+        n, nb = per["language"] + per["nav"] * T, dagger_bwd(per, T)
+        if upd != {"attention_fwd": n, "attention_bwd": nb}:
+            raise AssertionError(f"DAgger update batch (T {T}): launches "
+                                 f"{upd}, want {n} + {nb}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"DAgger update loss {loss}")
+    res["update"] = {"T": T, "B": batch[0].shape[0],
+                     "p50_ms": statistics.median(ms[1:]),
+                     "ms": ms[1:], "first_ms": ms[0],
+                     "peak_gib": peak_gib(), "loss": loss,
+                     "launches_per_batch": upd,
+                     "launches_per_nav_step": nav_counts}
+    log(f"DAgger update batch at T {T}, B {batch[0].shape[0]}: "
+        f"{json.dumps(res['update'])}; {per['nav']} K-ATT per nav step, "
+        f"{n} K-ATT = {per['language']} + {per['nav']} x {T} and {nb} "
+        f"K-ATT-BWD (the last step's last self-attention reaches no loss) "
+        f"per update batch [{card}]")
+    res["parity"] = dagger_parity(card, tr, next(tr.update_batches(
+        trajs, np.arange(len(trajs)))))
+    res["launches"] = dict(res["launches"])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 TC_DESIGN = "tensor cores (mma.sync)"
 
 # launches per call of each served program: K-ATT 16 per perceive (11
@@ -3711,7 +4268,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2
+    # phase 2 (with the test-only build of phase 3d beside it)
+    trap_tmp = tempfile.TemporaryDirectory(prefix="etpnav_trap_")
+    trap_build = start_trap_build(trap_tmp.name)
     secs = cuda_build.build_all()
     log(f"build: {len(cuda_build.SOURCES)} kernels in {secs:.2f} s")
     for name, rep in cuda_build.PTXAS_REPORTS.items():
@@ -3739,6 +4298,9 @@ def main() -> int:
     check_round_bf16(card)
     pre_rows = check_prenorm(card, cfg)
     gemm_rows = check_gemm(card)
+    # phase 3d
+    trap = check_barrier_trap(card, trap_build)
+    trap_tmp.cleanup()
 
     counters = {"attention_fwd": fused_attention.attention_fwd_launches,
                 "attention_plain": fused_attention.attention_plain_calls,
@@ -3824,6 +4386,12 @@ def main() -> int:
         feed = feed_phase(card, cfg, host_params, counters, tmp)
     torch.cuda.empty_cache()
     log(f"phase 11 done at {time.perf_counter() - T0:.0f} s")
+    # phase 12
+    dag_rows = check_dagger_attention(card)
+    with tempfile.TemporaryDirectory(prefix="etpnav_dagger_") as tmp:
+        dag = dagger_phase(card, counters, tmp)
+    torch.cuda.empty_cache()
+    log(f"phase 12 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -3841,6 +4409,8 @@ def main() -> int:
          "launches_runner": run_launches.get("attention_fwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_fwd", 0),
          "launches_feed": feed["launches"].get("attention_fwd", 0),
+         "launches_dagger": dag["launches"].get("attention_fwd", 0),
+         "dagger_shapes": {k: r["fwd"] for k, r in dag_rows.items()},
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
@@ -3856,6 +4426,7 @@ def main() -> int:
         {"name": "heatmap_nms_fused", "route": "cuda",
          "launches_runner": run_launches.get("heatmap_nms_fused", 0),
          "launches_feed": feed["launches"].get("heatmap_nms_fused", 0),
+         "launches_dagger": dag["launches"].get("heatmap_nms_fused", 0),
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
          "launches": res["counts"]["heatmap_nms_fused"],
@@ -3906,11 +4477,14 @@ def main() -> int:
          "gemm_bf16": {k: {f: r[f] for f in ("kernel_ms", "matmul_kernel_ms",
                                              "ratio", "tflops")}
                        for k, r in gemm_rows.items() if k != "soak"},
-         "gemm_bf16_soak": gemm_rows["soak"]},
+         "gemm_bf16_soak": gemm_rows["soak"],
+         "barrier_trap": trap["lines"]},
         {"name": "attention_bwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_bwd", 0),
          "launches_pretrain": pt_res["launches"].get("attention_bwd", 0),
          "launches_feed": feed["launches"].get("attention_bwd", 0),
+         "launches_dagger": dag["launches"].get("attention_bwd", 0),
+         "dagger_shapes": {k: r["bwd"] for k, r in dag_rows.items()},
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -4015,6 +4589,15 @@ def main() -> int:
         + " -> ".join(str(r["launches_per_step"]["attention_fwd"])
                       for r in rm.values())
         + f"; phase 11 {feed['seconds']:.0f} s [{card}]")
+    tr_r, up, ev = dag["train_rec_vlnbert"], dag["update"], \
+        dag["eval_rec_vlnbert"]["result"]
+    log(f"DAgger (R2R width, {DAGGER_ENVS} envs): collect s per iteration "
+        f"rec_vlnbert {tr_r['collect_s']}, cma "
+        f"{dag['train_cma']['collect_s']}; update p50 "
+        f"{up['p50_ms']:.2f} ms per batch (B {up['B']}, T {up['T']}); peak "
+        f"{max(up['peak_gib'], tr_r['peak_gib']):.2f} GiB; eval SR "
+        f"{ev['success']:.4f} SPL {ev['spl']:.4f} (random weights); phase "
+        f"12 {dag['seconds']:.0f} s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4024,4 +4607,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trap-child"]:
+        trap_child(sys.argv[2])
+    if sys.argv[1:2] == ["--soak-gemm"]:
+        sys.exit(soak_main(int(sys.argv[2])))
     sys.exit(main())

@@ -256,6 +256,34 @@ class PretrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DaggerTaskConfig:
+    """Legacy DAgger path (dagger_trainer.py:535-629; the IL.DAGGER
+    section of the VLN-CE lineage)."""
+
+    policy: str = "rec_vlnbert"  # 'rec_vlnbert' (waypoint-candidate
+                                 # space) | 'cma' (low-level actions)
+    iterations: int = 3          # DAGGER.iterations
+    episodes_per_iter: int = 64  # DAGGER.update_size
+    epochs: int = 4              # epochs per DAgger iteration
+    batch_size: int = 4
+    lr: float = 2.5e-4
+    p: float = 0.75              # beta = p ** iteration
+    max_steps: int = 60
+    store_dir: str = "data/trajectories_dirs/dagger"  # lmdb_features_dir
+    # released fine-tune checkpoint whose frozen CLIP/depth towers feed
+    # the feature/candidate fns (models/convert.convert_full_policy);
+    # '' = random init (pipeline-test mode, logged loudly)
+    encoder_ckpt: str = ""
+    # PREVALENT pytorch_model.bin for the rec_vlnbert policy itself
+    # (models/convert.convert_rec_vlnbert); '' = random init
+    policy_ckpt: str = ""
+    # recurrent VLN-BERT stack depths (vlnbert_PREVALENT.py la/vl
+    # layers); -1 = reuse PLANNER.num_l_layers / num_x_layers
+    la_layers: int = -1
+    vl_layers: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """EVAL section (iter_train.yaml; ss_trainer_ETP.py:513-641)."""
 
@@ -304,6 +332,7 @@ class ExperimentConfig:
     graph: GraphConfig = GraphConfig()
     il: ILConfig = ILConfig()
     pretrain: PretrainConfig = PretrainConfig()
+    dagger: DaggerTaskConfig = DaggerTaskConfig()
     eval: EvalConfig = EvalConfig()
     inference: InferenceConfig = InferenceConfig()
     paths: DataPathsConfig = DataPathsConfig()
@@ -400,7 +429,10 @@ def tiny_config(**overrides) -> ExperimentConfig:
     pretrain = PretrainConfig(num_train_steps=4, warmup_steps=2,
                               batch_size=2, max_traj_steps=3,
                               views_per_step=12)
+    dagger = DaggerTaskConfig(iterations=1, episodes_per_iter=2, epochs=1,
+                              batch_size=2, max_steps=4, la_layers=2,
+                              vl_layers=1)
     cfg = ExperimentConfig(task_type="r2r", planner=planner,
                            waypoint=waypoint, clip=clip, depth=depth, il=il,
-                           pretrain=pretrain)
+                           pretrain=pretrain, dagger=dagger)
     return dataclasses.replace(cfg, **overrides)

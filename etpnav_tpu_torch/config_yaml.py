@@ -13,8 +13,8 @@ A TPU-only key of a ported section (IL.rng_impl, PLANNER.remat_policy,
 a message that says it is TPU-only.
 
 A section of the JAX package's config that the port does not have yet
-(DAGGER, MESH) raises NotImplementedError naming the ROADMAP item that
-ports it; an unknown section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
+(MESH) raises NotImplementedError naming the ROADMAP item that ports
+it; an unknown section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
 parse YAML, so `config_from_dict` and the runner's `run_config` need no
 PyYAML.
 """
@@ -34,6 +34,7 @@ _SECTION_FIELDS = {
     "GRAPH": "graph",
     "IL": "il",
     "PRETRAIN": "pretrain",
+    "DAGGER": "dagger",
     "EVAL": "eval",
     "INFERENCE": "inference",
     "PATHS": "paths",
@@ -42,8 +43,7 @@ _SECTION_FIELDS = {
 # sections of the JAX package's config that are not ported yet, with the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "DAGGER": "ROADMAP §1 item 8 (legacy DAgger policies)",
-    "MESH": "ROADMAP §1 item 7 (distribution)",
+    "MESH": "ROADMAP §1, \"Distribution\"",
 }
 
 # keys of the JAX package's config that act on the TPU program only

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace etp {
 
@@ -437,11 +438,68 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                : "memory");
 }
 
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+// A barrier wait that does not end is a deadlock of the ring, not a slow
+// launch: no legitimate wait comes near kMbarTimeoutNs (the slowest slab
+// takes microseconds). mbar_wait then writes a fault record into
+// host-mapped memory, where the host reads it after the launch has failed
+// (device printf may not flush before a trap), and traps, so the hang
+// becomes a launch error that names its barrier. The bound costs one
+// %globaltimer read per failed try_wait.
+constexpr unsigned long long kMbarTimeoutNs = 4000000000ull;   // 4 s
+constexpr unsigned long long kFaultGraceNs = 50000000ull;      // 50 ms
+
+// The record's words: kFaultSet, then the kernel's tile (BM, BN, STAGES),
+// the barrier (0 = full, 1 = empty), its stage, the parity waited for, the
+// block and the thread. One thread of the grid writes it.
+constexpr unsigned kFaultSet = 0x6d626172u;                 // "mbar"
+constexpr int kFaultWords = 9;
+
+struct BarrierSite {
+  unsigned* fault;                       // host-mapped record, or null
+  unsigned short bm, bn, stages, kind;   // kind: 0 = full, 1 = empty
+};
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+static __device__ unsigned g_fault_claim;  // elects the record's writer
+
+__device__ __noinline__ void mbar_fault(const BarrierSite& site, int stage,
+                                        int parity) {
+  if (site.fault && atomicCAS(&g_fault_claim, 0u, 1u) == 0u) {
+    volatile unsigned* r = site.fault;
+    r[1] = site.bm;
+    r[2] = site.bn;
+    r[3] = site.stages;
+    r[4] = site.kind;
+    r[5] = static_cast<unsigned>(stage);
+    r[6] = static_cast<unsigned>(parity);
+    r[7] = blockIdx.x;
+    r[8] = threadIdx.x;
+    __threadfence_system();
+    r[0] = kFaultSet;
+    __threadfence_system();
+  }
+  // every faulting thread waits before it traps: a trap ends the context
+  // and may drop the record's stores still on their way to the host
+  const uint64_t t = global_ns();
+  while (global_ns() - t < kFaultGraceNs) {
+  }
+  __trap();
+}
+
+// Wait until the barrier's phase of parity `parity` has completed; trap
+// with a fault record after kMbarTimeoutNs.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity,
+                                          const BarrierSite& site,
+                                          int stage) {
   const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -449,7 +507,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "=r"(done)
         : "r"(a), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > kMbarTimeoutNs)
+      mbar_fault(site, stage, parity);
+  }
 }
 
 // The (c0 = column, c1 = row) box of a 2-D tensor map into shared
@@ -594,11 +658,18 @@ __device__ __forceinline__ void produce_tile(const CUtensorMap* tm_a,
                                              unsigned char* base,
                                              uint64_t* full, uint64_t* empty,
                                              int m0, int w_row0, int KT,
-                                             int& it) {
+                                             int& it, unsigned* fault) {
   using Tile = WgTile<BM, BN, STAGES>;
+  const BarrierSite site{fault, BM, BN, STAGES, 1};
   for (int kt = 0; kt < KT; ++kt, ++it) {
     const int s = it % STAGES;
-    if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+#ifdef ETP_TEST_WITHHOLD_ARRIVE
+    // a deliberately broken ring, for testing the bounded wait only: the
+    // producer of block 0 stops before its first arrival on full[0], so
+    // that block's consumers wait on full[0], parity 0, forever
+    if (blockIdx.x == 0 && it == 0) return;
+#endif
+    if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1, site, s);
     unsigned char* st = base + s * Tile::kStageBytes;
     mbar_expect_tx(&full[s], Tile::kStageBytes);
     tma_load_2d(st, tm_a, &full[s], kt * kWgBk, m0);
@@ -613,13 +684,14 @@ __device__ __forceinline__ void consume_tile(float* d,
                                              const unsigned char* base,
                                              uint64_t* full, uint64_t* empty,
                                              int KT, int& it, int wg,
-                                             bool leader) {
+                                             bool leader, unsigned* fault) {
   using Tile = WgTile<BM, BN, STAGES>;
+  const BarrierSite site{fault, BM, BN, STAGES, 0};
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
   for (int kt = 0; kt < KT; ++kt, ++it) {
     const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
+    mbar_wait(&full[s], (it / STAGES) & 1, site, s);
     const unsigned char* st = base + s * Tile::kStageBytes;
     const uint64_t da = sw128_desc(st + wg * 64 * 128);
     const uint64_t db = sw128_desc(st + Tile::kABytes);
@@ -664,7 +736,7 @@ __global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::kThreads,
                                   MIN_BLOCKS)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_w, GemmArgs p,
-                 int n_tiles) {
+                 int n_tiles, unsigned* fault) {
   using Tile = WgTile<BM, BN, STAGES>;
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
@@ -686,7 +758,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
       for (int t = blockIdx.x; t < tiles; t += gridDim.x)
         produce_tile<BM, BN, STAGES>(&tm_a, &tm_w, base, full, empty,
                                      (t % m_tiles) * BM, (t / m_tiles) * BN,
-                                     KT, it);
+                                     KT, it, fault);
     return;
   }
   const int wg = tid / 128, lane = tid % 32;
@@ -696,7 +768,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int m0 = (t % m_tiles) * BM, w_row0 = (t / m_tiles) * BN;
     float d[BN / 2];
     consume_tile<BM, BN, STAGES>(d, base, full, empty, KT, it, wg,
-                                 tid % 128 == 0);
+                                 tid % 128 == 0, fault);
     const int part = w_row0 / p.n_part, n0 = w_row0 % p.n_part;
     TO* out = static_cast<TO*>(p.out) +
               static_cast<long long>(part) * p.M * p.n_part;
@@ -705,6 +777,15 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
                        lane);
   }
 }
+
+// The library's barrier fault record: kFaultWords words of pinned host
+// memory mapped into the device's address space, allocated once by
+// etp_dense_fault_init when the library is loaded (outside any stream
+// capture). Each library that includes this header has its own.
+static unsigned* g_fault_host = nullptr;
+static unsigned* g_fault_device = nullptr;
+
+static inline unsigned* fault_record_device() { return g_fault_device; }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime (the
 // libraries link no libcuda); null if the driver has none.
@@ -767,7 +848,8 @@ int launch_gemm_bf16(const GemmArgs& p, int parts, cudaStream_t st) {
   const int n_tiles = parts * p.n_part / BN;
   const int tiles = (p.M + BM - 1) / BM * n_tiles;
   const int grid = tiles < kSms * MIN_BLOCKS ? tiles : kSms * MIN_BLOCKS;
-  kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(tm_a, tm_w, p, n_tiles);
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(tm_a, tm_w, p, n_tiles,
+                                                    fault_record_device());
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1330,3 +1412,37 @@ int launch_head_attention(const T* qkv, const float* bias, long long sbb,
 }
 
 }  // namespace etp
+
+extern "C" {
+
+// Allocates the barrier fault record (see mbar_wait); 0 or a CUDA error.
+// Without it a stuck wait still traps, with no record.
+int etp_dense_fault_init() {
+  if (etp::g_fault_host) return 0;
+  void* h = nullptr;
+  int err = static_cast<int>(cudaHostAlloc(
+      &h, etp::kFaultWords * sizeof(unsigned),
+      cudaHostAllocMapped | cudaHostAllocPortable));
+  if (err) return err;
+  memset(h, 0, etp::kFaultWords * sizeof(unsigned));
+  void* d = nullptr;
+  err = static_cast<int>(cudaHostGetDevicePointer(&d, h, 0));
+  if (err) {
+    cudaFreeHost(h);
+    return err;
+  }
+  etp::g_fault_host = static_cast<unsigned*>(h);
+  etp::g_fault_device = static_cast<unsigned*>(d);
+  return 0;
+}
+
+// Copies the record's kFaultWords words into out (a host read that needs
+// no working CUDA context); returns 1 if a wait timed out, else 0.
+int etp_dense_fault(unsigned* out) {
+  const volatile unsigned* r = etp::g_fault_host;
+  if (!r) return 0;
+  for (int i = 0; i < etp::kFaultWords; ++i) out[i] = r[i];
+  return out[0] == etp::kFaultSet;
+}
+
+}  // extern "C"

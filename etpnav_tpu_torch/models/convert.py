@@ -18,14 +18,18 @@ trunk's blocks in a list).
      layout under `predictor.`);
    - the fine-tune policy that owns the frozen encoders
      (`{'state_dict': {'net.module.vln_bert.*', ...}}`);
-   - HF `BertModel` / `XLMRobertaModel` encoders (the goldens).
+   - HF `BertModel` / `XLMRobertaModel` encoders (the goldens);
+   - PREVALENT's `pytorch_model.bin` into the recurrent VLN-BERT
+     (`convert_rec_vlnbert`, which loads the port's module in place).
    Linear weights go from torch (out, in) to the tree's (in, out).
 2. `load_jax_tree` copies a tree into a port module;
    `agent_params_from_jax` takes the JAX `AgentParams` as nested dicts
    (or the NamedTuple) of numpy arrays — no JAX object crosses over —
-   and returns a loaded `Agent`, and `pretrain_params_from_jax` takes
+   and returns a loaded `Agent`, `pretrain_params_from_jax` takes
    the tree of the JAX `init_pretrain_params` and returns loaded
-   `PretrainParams`:
+   `PretrainParams`, and `rec_vlnbert_params_from_jax`,
+   `cma_params_from_jax` and `instruction_encoder_from_jax` do the same
+   for the legacy DAgger policies:
 
 - dense `w` goes from (in, out) to PyTorch's (out, in);
 - convolution kernels go from HWIO to OIHW;
@@ -116,6 +120,33 @@ def agent_params_from_jax(tree: Any, cfg: ExperimentConfig, *,
     params = AgentParams(cfg)
     load_jax_tree(params, tree)
     return Agent(cfg, params, device=device)
+
+
+def rec_vlnbert_params_from_jax(tree: Any, cfg):
+    """The JAX `rec_vlnbert.init_params` tree as numpy -> loaded
+    `RecVLNBertParams` (on the CPU) for `cfg` (a `RecVLNBertConfig`)."""
+    from etpnav_tpu_torch.models.rec_vlnbert import RecVLNBertParams
+    params = RecVLNBertParams(cfg)
+    load_jax_tree(params, tree)
+    return params
+
+
+def cma_params_from_jax(tree: Any, cfg):
+    """The JAX `cma.init_cma_params` tree as numpy -> loaded `CMAParams`
+    (on the CPU) for `cfg` (a `CMAConfig`)."""
+    from etpnav_tpu_torch.models.cma import CMAParams
+    params = CMAParams(cfg)
+    load_jax_tree(params, tree)
+    return params
+
+
+def instruction_encoder_from_jax(tree: Any, cfg):
+    """The JAX `cma.init_instruction_encoder` tree as numpy -> loaded
+    `InstructionEncoderParams` for `cfg` (an `InstructionEncoderConfig`)."""
+    from etpnav_tpu_torch.models.cma import InstructionEncoderParams
+    params = InstructionEncoderParams(cfg)
+    load_jax_tree(params, tree)
+    return params
 
 
 def pretrain_params_from_jax(tree: Any, cfg: ExperimentConfig,
@@ -340,6 +371,42 @@ def convert_full_policy(state_dict: Mapping, planner_cfg=None,
         out["clip"] = convert_openai_clip(
             clip_sd, clip_cfg or r2r_config().clip)
     return out
+
+
+def convert_rec_vlnbert(state_dict: Mapping, params: nn.Module,
+                        la_layers: int = 9, vl_layers: int = 4) -> nn.Module:
+    """PREVALENT `pytorch_model.bin` (the VLNBert layout of
+    vlnbert_PREVALENT.py:362-381, loaded by the reference at
+    vlnbert_init.py:10-18) -> the transformer of a `RecVLNBertParams`,
+    loaded into `params` in place (and returned).
+
+    Converts the embeddings, the la_layers language stack
+    (`lalayer.{i}.*`), each LXRT layer's VISUAL branch
+    (`addlayer.{i}.visual_attention/visn_self_att/visn_inter/
+    visn_output`) and the pooler. The candidate-fusion projections have no
+    reference counterpart and keep `params`' values. The dead lang-branch
+    parameters inside each LXRTXLayer (lang_self_att/lang_inter/
+    lang_output, initialised but never called, vlnbert_PREVALENT.py:296-298
+    against :322-342) are ignored."""
+    sd = strip_prefixes(state_dict)
+    if len(params.lalayer) != la_layers or len(params.addlayer) != vl_layers:
+        raise ValueError(f"params hold {len(params.lalayer)} + "
+                         f"{len(params.addlayer)} layers, not {la_layers} + "
+                         f"{vl_layers}")
+    load_jax_tree(params.embeddings, _embeddings(sd), "embeddings")
+    load_jax_tree(params.lalayer, stack_layers([
+        _bert_layer(sd, f"lalayer.{i}") for i in range(la_layers)]),
+        "lalayer")
+    load_jax_tree(params.addlayer, stack_layers([{
+        "cross": _attn_block(sd, f"addlayer.{i}.visual_attention.att",
+                             f"addlayer.{i}.visual_attention.output"),
+        "self": _attn_block(sd, f"addlayer.{i}.visn_self_att.self",
+                            f"addlayer.{i}.visn_self_att.output"),
+        "ffn": _ffn(sd, f"addlayer.{i}.visn_inter",
+                    f"addlayer.{i}.visn_output"),
+    } for i in range(vl_layers)]), "addlayer")
+    load_jax_tree(params.pooler, _linear(sd, "pooler.dense"), "pooler")
+    return params
 
 
 def convert_hf_bert_encoder(state_dict: Mapping, num_layers: int) -> dict:

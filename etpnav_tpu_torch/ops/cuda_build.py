@@ -139,6 +139,42 @@ class LaunchCounter:
         return self._n
 
 
+# the words of csrc/dense.cuh's barrier fault record
+_FAULT_WORDS = 9
+_FAULT_KINDS = ("full", "empty")
+
+
+def bind_dense_fault(lib: ctypes.CDLL) -> None:
+    """Binds and allocates the barrier fault record of a library that
+    includes `csrc/dense.cuh` (its binder calls this at load)."""
+    lib.etp_dense_fault_init.argtypes = []
+    lib.etp_dense_fault_init.restype = ctypes.c_int
+    lib.etp_dense_fault.argtypes = [ctypes.POINTER(ctypes.c_uint)]
+    lib.etp_dense_fault.restype = ctypes.c_int
+    check(lib.etp_dense_fault_init(), "etp_dense_fault_init")
+
+
+def dense_fault_report() -> Optional[str]:
+    """What a bf16 GEMM's timed-out barrier wait recorded before it
+    trapped (`mbar_wait`, csrc/dense.cuh), for every loaded library that
+    has the record; None if no wait timed out. Reads pinned host memory
+    only, so it works after the launch error has spoiled the CUDA
+    context."""
+    lines = []
+    for name, lib in sorted(_libs.items()):
+        if not hasattr(lib, "etp_dense_fault"):
+            continue
+        rec = (ctypes.c_uint * _FAULT_WORDS)()
+        if lib.etp_dense_fault(rec):
+            _, bm, bn, stages, kind, stage, parity, block, thread = rec
+            lines.append(
+                f"lib{name}: gemm_bf16_kernel<BM={bm}, BN={bn}, "
+                f"STAGES={stages}> timed out in mbar_wait on "
+                f"{_FAULT_KINDS[kind]}[{stage}], parity {parity} "
+                f"(block {block}, thread {thread})")
+    return "; ".join(lines) or None
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

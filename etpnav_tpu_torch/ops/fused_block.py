@@ -52,6 +52,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         [vp] * 12 + [i64] * 3 + [vp] * 5 + [i32] * 5 + [ctypes.c_float] * 2
         + [vp])
     lib.etp_attention_block.restype = ctypes.c_int
+    cuda_build.bind_dense_fault(lib)
 
 
 cuda_build.register_binder("attention_block", _bind)

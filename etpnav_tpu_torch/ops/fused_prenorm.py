@@ -49,6 +49,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.etp_round_bf16.restype = ctypes.c_int
     lib.etp_gemm_bf16.argtypes = [vp] * 4 + [i32] * 3 + [vp]
     lib.etp_gemm_bf16.restype = ctypes.c_int
+    cuda_build.bind_dense_fault(lib)
 
 
 cuda_build.register_binder("prenorm_attention", _bind)

@@ -16,6 +16,8 @@ network service (serving.py + serving_http.py).
         --trainer Pretrain CHECKPOINT_FOLDER=ckpt/pretrain
     python -m etpnav_tpu_torch.run --exp-config configs/r2r.yaml \
         PRETRAINED_PATH=ckpt/pretrain/model_step_100000.pt
+    python -m etpnav_tpu_torch.run --exp-config configs/dagger_r2r.yaml \
+        --trainer DAgger --num-envs 8 [DAGGER.policy=cma]
 
 Everything runs on the GPU unless `--device cpu` is passed; with no GPU
 and no `--device cpu` the trainer raises. `run(argv)` parses the command
@@ -49,8 +51,7 @@ TRAINER_REGISTRY: Dict[str, Callable] = {}
 # trainers and options of the JAX runner that are not ported yet, with the
 # ROADMAP item that ports each
 NOT_PORTED = {
-    "DAgger": "ROADMAP §1 item 8 (legacy DAgger policies)",
-    "--video": "ROADMAP §1 item 8 (eval videos)",
+    "--video": "ROADMAP §1, \"Legacy and offline\" (eval videos)",
     "pretrained_path directory": "a directory names a JAX (orbax) pretrain "
                                  "checkpoint, which the port does not read; "
                                  "pretrain with `--trainer Pretrain` and "
@@ -137,6 +138,143 @@ def _build_ss_etp(cfg, args):
         raise
 
 
+@register_trainer("DAgger")
+def _build_dagger(cfg, args):
+    """Legacy DAgger path: frozen-encoder features + oracle teacher over
+    either policy family (dagger_trainer.py:187-629). The feature and
+    candidate functions run the CLIP/depth towers and the waypoint
+    predictor on the trainer's device; DAGGER.encoder_ckpt (a released
+    fine-tune checkpoint) loads the converted frozen towers, else they
+    are random (only useful for pipeline tests; a warning is logged).
+    DAGGER.policy_ckpt (PREVALENT's pytorch_model.bin) loads the
+    recurrent VLN-BERT."""
+    import torch
+
+    from etpnav_tpu_torch.device import resolve_device
+    from etpnav_tpu_torch.env.geometric import GeometricNavEnv
+    from etpnav_tpu_torch.env.habitat_adapter import (
+        habitat_available,
+        make_habitat_envs,
+    )
+    from etpnav_tpu_torch.models import clip_vit, depth_resnet
+    from etpnav_tpu_torch.models.convert import load_jax_tree
+    from etpnav_tpu_torch.training import agent as agent_mod
+    from etpnav_tpu_torch.training.dagger import (
+        DaggerConfig,
+        DaggerTrainer,
+        RecVLNBertDagger,
+    )
+
+    device = resolve_device(args.device)
+    num_envs = args.num_envs or cfg.num_environments
+    if habitat_available():
+        # the same simulator choice as the SS-ETP builder: the legacy
+        # path drives the real simulator when one is present
+        envs = make_habitat_envs(cfg, num_envs=num_envs, seed=cfg.seed)
+    else:
+        logger.warning("habitat-sim not available; using GeometricNavEnv")
+        envs = GeometricNavEnv(
+            num_envs=num_envs, seed=cfg.seed,
+            vocab_size=cfg.planner.vocab_size,
+            max_instr_len=cfg.il.max_text_len,
+            image_size=cfg.clip.image_size,
+            depth_size=cfg.depth.input_size,
+            pad_id=cfg.planner.pad_token_id)
+    d = cfg.dagger
+    dcfg = DaggerConfig(
+        iterations=d.iterations, episodes_per_iter=d.episodes_per_iter,
+        epochs=d.epochs, batch_size=d.batch_size, lr=d.lr, p=d.p,
+        max_steps=d.max_steps)
+    params = agent_mod.init_agent_params(cfg, cfg.seed)
+    if d.encoder_ckpt:
+        from etpnav_tpu_torch.models.convert import convert_full_policy
+        trees = convert_full_policy(
+            torch.load(d.encoder_ckpt, map_location="cpu"),
+            planner_cfg=cfg.planner, clip_cfg=cfg.clip,
+            depth_cfg=cfg.depth)
+        for k in ("clip", "depth"):
+            if k in trees:
+                load_jax_tree(getattr(params, k), trees[k], k)
+        logger.info("DAgger frozen towers loaded from %s", d.encoder_ckpt)
+    else:
+        logger.warning("DAGGER.encoder_ckpt unset: frozen towers are "
+                       "randomly initialized (pipeline-test mode)")
+    agent = agent_mod.Agent(cfg, params, device=device)
+
+    if d.policy == "cma":
+        from etpnav_tpu_torch.models.cma import CMAConfig
+        s = cfg.depth.input_size // 32
+        depth_channels = cfg.depth.output_size // (s * s)
+
+        # pooled forward-view features, the quantities the reference
+        # captures through its space_pool_{rgb,depth} forward hooks
+        # (dagger_trainer.py:255-266)
+        @torch.inference_mode()
+        def feature_fn(obs):
+            rgb = agent._t(np.stack([o["rgb"][0] for o in obs]))
+            dep = agent._t(np.stack([o["depth"][0] for o in obs]))
+            r = clip_vit.encode_image_uint8(agent.params.clip, cfg.clip,
+                                            rgb)
+            dd = depth_resnet.encode_depth(agent.params.depth, cfg.depth,
+                                           dep).mean((1, 2))
+            return (r.float().cpu().numpy(), dd.float().cpu().numpy())
+
+        ccfg = CMAConfig(vocab_size=cfg.planner.vocab_size,
+                         rgb_dim=cfg.clip.output_dim,
+                         depth_dim=depth_channels,
+                         pad_token_id=cfg.planner.pad_token_id)
+        return DaggerTrainer(envs, ccfg, dcfg, feature_fn, d.store_dir,
+                             seed=cfg.seed, device=device)
+
+    if d.policy != "rec_vlnbert":
+        raise ValueError(f"unknown DAGGER.policy {d.policy!r}")
+    from etpnav_tpu_torch.models.rec_vlnbert import RecVLNBertConfig
+    K = cfg.waypoint.max_predictions
+
+    @torch.inference_mode()
+    def candidate_fn(obs):
+        wp = agent_mod.encode_panorama(
+            agent.params, cfg, agent._t(np.stack([o["rgb"] for o in obs])),
+            agent._t(np.stack([o["depth"] for o in obs])))
+
+        def host(key, dtype):
+            return wp[key].cpu().numpy().astype(dtype)
+
+        return {
+            "rgb": host("rgb_fts", np.float32)[:, :K],
+            "depth": host("dep_fts", np.float32)[:, :K],
+            "ang": host("loc_fts", np.float32)[:, :K],
+            "angles": host("cand_angles", np.float64),
+            "dists": host("cand_distances", np.float64),
+            "mask": host("cand_valid", bool),
+        }
+
+    p = cfg.planner
+    rcfg = RecVLNBertConfig(
+        vocab_size=p.vocab_size, hidden=p.hidden_size, heads=p.num_heads,
+        intermediate=p.intermediate_size,
+        la_layers=(d.la_layers if d.la_layers > 0 else p.num_l_layers),
+        vl_layers=(d.vl_layers if d.vl_layers > 0 else p.num_x_layers),
+        max_pos=p.max_position_embeddings, eps=p.lang_layer_norm_eps,
+        rgb_dim=p.image_feat_size, depth_dim=p.depth_feat_size,
+        angle_dim=p.angle_feat_size, max_cands=K + 1,
+        hidden_dropout=p.hidden_dropout, attn_dropout=p.attn_dropout,
+        pad_token_id=p.pad_token_id)
+    trainer = RecVLNBertDagger(envs, rcfg, dcfg, candidate_fn,
+                               d.store_dir, seed=cfg.seed, device=device)
+    if d.policy_ckpt:
+        # PREVALENT pytorch_model.bin -> the policy's transformer
+        # (vlnbert_init.py:10-18); Adam starts afresh on the loaded
+        # weights, as the JAX runner re-inits its optimizer state
+        from etpnav_tpu_torch.models.convert import convert_rec_vlnbert
+        from etpnav_tpu_torch.training.dagger import make_adam
+        convert_rec_vlnbert(torch.load(d.policy_ckpt, map_location="cpu"),
+                            trainer.params, rcfg.la_layers, rcfg.vl_layers)
+        trainer.optimizer = make_adam(trainer.params, dcfg.lr)
+        logger.info("DAgger policy loaded from %s", d.policy_ckpt)
+    return trainer
+
+
 @register_trainer("Pretrain")
 def _build_pretrain(cfg, args):
     from etpnav_tpu_torch.training.pretrain import (
@@ -191,7 +329,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve: return (httpd, nav) instead of "
                          "blocking (programmatic use / tests)")
     ap.add_argument("--trainer", default="SS-ETP",
-                    choices=sorted({*TRAINER_REGISTRY, "DAgger"}))
+                    choices=sorted(TRAINER_REGISTRY))
     ap.add_argument("--num-envs", type=int, default=0,
                     help="0 = cfg NUM_ENVIRONMENTS (reference keeps "
                          "IL.batch_size equal to it)")
@@ -267,10 +405,8 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
         from etpnav_tpu_torch.training.finetune import FinetuneTrainer
         trainer = FinetuneTrainer(cfg, None, ckpt_dir=args.ckpt_dir,
                                   seed=cfg.seed, device=args.device)
-    elif args.trainer in TRAINER_REGISTRY:
-        trainer = TRAINER_REGISTRY[args.trainer](cfg, args)
     else:
-        raise _not_ported(args.trainer)
+        trainer = TRAINER_REGISTRY[args.trainer](cfg, args)
     try:
         return _run_trainer(trainer, cfg, args)
     finally:
@@ -279,10 +415,22 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
 
 
 def _run_trainer(trainer, cfg, args):
+    dagger = hasattr(trainer, "collect")
+    if dagger and args.run_type == "inference":
+        raise ValueError("the DAgger trainer has no leaderboard "
+                         "inference mode; use --run-type train or eval")
+    if dagger and args.run_type == "eval" and not hasattr(trainer,
+                                                          "evaluate"):
+        raise ValueError("this DAgger policy has no eval loop; "
+                         "use DAGGER.policy=rec_vlnbert")
     ckpt = args.ckpt or (cfg.inference.ckpt_path
                          if args.run_type in ("inference", "serve")
                          else None)
     if ckpt:
+        if not hasattr(trainer, "load_checkpoint"):
+            raise ValueError(
+                f"trainer {args.trainer!r} cannot load checkpoints; "
+                "for DAgger use DAGGER.encoder_ckpt for the frozen towers")
         trainer.load_checkpoint(ckpt)
     elif cfg.pretrained_path and hasattr(trainer, "load_pretrained"):
         load_pretrained_path(trainer, cfg.pretrained_path)
@@ -322,6 +470,15 @@ def _run_trainer(trainer, cfg, args):
     if hasattr(trainer, "train_steps"):
         raise ValueError(f"--trainer Pretrain has no --run-type "
                          f"{args.run_type}; use train")
+    if dagger and args.run_type == "train":
+        logs = trainer.train()
+        logger.info("DAgger train done: %s", logs)
+        return logs
+    if dagger:                                 # the greedy legacy eval
+        n = args.episode_count if args.episode_count > 0 else 24
+        stats = trainer.evaluate(n, success_distance=cfg.il.success_distance)
+        logger.info("DAgger eval: %s", stats)
+        return stats
     if args.run_type == "train":
         # IL.is_requeue gates auto-resume (ss_trainer_ETP.py:216-236)
         if (cfg.il.is_requeue and not args.ckpt

@@ -420,11 +420,15 @@ class NavServer:
                 cfg, gmap, emits[i], int(logits[i].argmax()),
                 ses.prev_node, force_stop=ses.stepk >= self.max_steps)
             ses.prev_node = new_prev
-            ses.done = is_stop
+            # under the lock, and never clearing: a client that timed out
+            # after the claim has poisoned the session meanwhile
+            with self._lock:
+                ses.done = ses.done or is_stop
+                done = ses.done
             ses.history.append({"step": ses.stepk,
                                 "pos": p.pos.tolist(),
                                 "stop_prob": float(probs[i, 0])})
-            p.result = {"action": action, "done": ses.done,
+            p.result = {"action": action, "done": done,
                         "stop_prob": float(probs[i, 0]),
                         "num_nodes": gmap.num_nodes,
                         "num_ghosts": len(gmap.ghosts)}

@@ -1,12 +1,34 @@
-"""Trajectory helpers the port's environments read (the port's own copy
-of `ndtw_subgoal_index` and `camera_orientations_12` from
-`etpnav_tpu/utils/trajectory.py`)."""
+"""Shared trajectory / camera-rig utilities (the port's own copy of
+`etpnav_tpu/utils/trajectory.py`).
+
+Capability target: vlnce_baselines/common/utils.py — discrete-to-continuous
+path densification (dis_to_con, :45-61) and the 12-camera rig builder
+(get_camera_orientations12, :62-67).
+"""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
 import numpy as np
+
+
+def densify_path(path: np.ndarray, amount: float = 0.25) -> np.ndarray:
+    """Discrete waypoint path -> continuous micro-step path with points
+    every `amount` meters along each segment (dis_to_con semantics)."""
+    path = np.asarray(path, np.float64)
+    if len(path) < 2:
+        return path.copy()
+    out = [path[0]]
+    for a, b in zip(path, path[1:]):
+        seg = b - a
+        dist = float(np.linalg.norm(seg))
+        n = int(dist // amount)
+        for k in range(1, n + 1):
+            out.append(a + seg * (k * amount / dist))
+        if not np.allclose(out[-1], b):
+            out.append(b)
+    return np.stack(out)
 
 
 def camera_orientations_12() -> Dict[str, List[float]]:
@@ -42,3 +64,13 @@ def ndtw_subgoal_index(within: np.ndarray, progress: int):
     else:
         sub_idx = int(mism[0] - 1)      # the quirk: position, not index
     return sub_idx, sub_idx
+
+
+def unique_consecutive(points: List) -> List:
+    """Drop consecutive duplicate positions (submission-path compaction,
+    ss_trainer_ETP.py:748-751)."""
+    out = []
+    for p in points:
+        if not out or list(p) != list(out[-1]):
+            out.append(p)
+    return out

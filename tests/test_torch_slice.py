@@ -252,7 +252,10 @@ def test_port_imports_no_jax():
             "etpnav_tpu_torch/env/habitat_config.py",
             "etpnav_tpu_torch/env/habitat_worker.py",
             "etpnav_tpu_torch/env/worker_main.py",
-            "etpnav_tpu_torch/training/pipeline.py"} <= names
+            "etpnav_tpu_torch/training/pipeline.py",
+            "etpnav_tpu_torch/training/dagger.py",
+            "etpnav_tpu_torch/models/cma.py",
+            "etpnav_tpu_torch/models/rec_vlnbert.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -283,3 +286,31 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_trajectory_utils_match_jax():
+    """`densify_path` and `unique_consecutive` (the port's copy of
+    `etpnav_tpu/utils/trajectory.py`), as tests/test_eval_loop.py's
+    `test_trajectory_utils` holds them, and equal to the JAX package's."""
+    from etpnav_tpu.utils import trajectory as jtraj
+    from etpnav_tpu_torch.utils.trajectory import (
+        camera_orientations_12,
+        densify_path,
+        unique_consecutive,
+    )
+    path = np.array([[0, 0, 0], [1, 0, 0]], float)
+    dense = densify_path(path, 0.25)
+    assert len(dense) >= 5
+    seg = np.linalg.norm(np.diff(dense, axis=0), axis=1)
+    assert (seg <= 0.25 + 1e-9).all()
+    rig = camera_orientations_12()
+    assert len(rig) == 12 and rig[""][1] == 0.0
+    assert unique_consecutive([[0, 0], [0, 0], [1, 1]]) == [[0, 0], [1, 1]]
+    rng = np.random.default_rng(0)
+    walk = np.cumsum(rng.normal(0, 0.7, (6, 3)), axis=0)
+    for p in (walk, walk[:1], np.repeat(walk[:3], 2, axis=0)):
+        for amount in (0.25, 0.4):
+            np.testing.assert_array_equal(densify_path(p, amount),
+                                          jtraj.densify_path(p, amount))
+    pts = [list(p) for p in np.round(rng.random((12, 2)) * 2)]
+    assert unique_consecutive(pts) == jtraj.unique_consecutive(pts)
