@@ -52,9 +52,10 @@ Phases, each reported on its own lines:
      at least 40 steps are served; every launch count must be exactly
      what the served programs make (16 K-ATT per perceive, 8 per
      navigation scoring, 9 per instruction; 1 K-NMS per perceive; no K-GN
-     or K-PRENORM) and no plain version may be called; the device ops
-     per perceive, beside the same perceive with the candidate slots
-     taken by the `extract_candidates` chain: fewer by that chain's ops;
+     or K-PRENORM) and no plain version may be called; the ops per
+     perceive, beside the same perceive with the candidate slots taken by
+     the `extract_candidates` chain: fewer by exactly that chain's ops,
+     counted by the dispatcher (torch.profiler's device ops beside them);
   4b. the same with the fused perception configuration
      (`DepthEncoderConfig.use_fused_gn`, `ClipConfig.use_fused_block`):
      54 K-GN and 11 K-PRENORM launches per perceive, K-ATT 5 per perceive;
@@ -156,6 +157,24 @@ Phases, each reported on its own lines:
      memory, collect s per iteration, the eval's SR / SPL; one nav_step
      and one sequence_nll with its gradients, kernels against plain
      versions on the card;
+  13. the learning demo, warm against cold and the offline extractor at
+     r2r_config() width, each run with every count at 0 before it and
+     read after: (a) `tools.learning_demo.main` with 8 envs to iteration
+     4 with an 8-episode held-out eval at 0 and 4, then a second session
+     in the same directory that prints `resumed_at` 4 and runs to 6, one
+     checkpoint left after each; a finite IL loss; launches exact (the
+     rollout's and the eval's programs as in phase 4, and 19 K-ATT + 19
+     K-ATT-BWD per learn step), reported per iteration; (b)
+     `tools.warm_vs_cold.main` cut to 4 pretraining steps and 2
+     iterations per arm: 19 K-ATT-BWD per pretraining and per IL step,
+     one K-NMS per perceive, no plain call, both arms' lines and the
+     summary line; (c) `FeatureExtractor` over 8 panoramas x 36 views
+     with a seeded 40-class class_proj, default (12 K-ATT per call) and
+     fused configuration (11 K-PRENORM, 1 K-ATT, 54 K-GN per call), fp32
+     and bf16: the features through the kernels against the same call on
+     the plain versions on the card, then in bf16 ms per panorama and
+     the peak memory; and K-ATT alone at the extractor's shape q/k/v
+     (288, 12, 50, 64) beside its plain version, SDPA and the bound;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
@@ -354,51 +373,59 @@ def attention_work(q, k, v, bias):
     return nbytes, 4.0 * B * H * Lq * Lk * hd
 
 
-def check_attention(card: str) -> dict:
+def attention_row(card: str, name: str, q32, k32, v32, bias,
+                  dtype) -> dict:
+    """K-ATT against its plain version on (q, k, v, bias) cast to `dtype`
+    (raises past TOL), then its ms, kernel_ms, the plain version's ms,
+    SDPA's ms and kernel_ms, and the card's bound for the same work."""
     import torch.nn.functional as F
 
     from etpnav_tpu_torch.ops.fused_attention import (
         attention_fwd,
         attention_plain,
     )
-    dev = torch.device("cuda")
+    q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    got = attention_fwd(q, k, v, bias, scale)
+    want = attention_plain(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), f"{name}: not finite"
+    err = (got.float() - want.float()).abs().max().item()
+    if err > TOL[dtype]:
+        raise AssertionError(f"K-ATT {name} {dtype}: max abs err "
+                             f"{err} > {TOL[dtype]}")
+    ms = cuda_ms(lambda: attention_fwd(q, k, v, bias, scale))
+    k_ms = kernel_ms(lambda: attention_fwd(q, k, v, bias, scale))
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, bias, scale))
+    mask = None if bias is None else bias.to(dtype)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)
+
+    lib_ms, lib_k_ms = cuda_ms(sdpa), kernel_ms(sdpa)
+    nbytes, flops = attention_work(q, k, v, bias)
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    key = f"{name}/{str(dtype).split('.')[-1]}"
+    row = {"shape": [list(q.shape), list(k.shape)],
+           "max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_kernel_ms": lib_k_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    log(f"K-ATT {key:28s} q{tuple(q.shape)} k{tuple(k.shape)} "
+        f"err={err:.3g} ms={ms:.4f} kernel_ms={k_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"sdpa_kernel_ms={lib_k_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}) [{card}]")
+    return row
+
+
+def check_attention(card: str) -> dict:
     rows = {}
-    for name, q32, k32, v32, bias in attention_cases(dev):
+    for name, q32, k32, v32, bias in attention_cases(torch.device("cuda")):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-            scale = 1.0 / np.sqrt(q.shape[-1])
-            got = attention_fwd(q, k, v, bias, scale)
-            want = attention_plain(q, k, v, bias, scale)
-            torch.cuda.synchronize()
-            assert torch.isfinite(got.float()).all(), f"{name}: not finite"
-            err = (got.float() - want.float()).abs().max().item()
-            if err > TOL[dtype]:
-                raise AssertionError(f"K-ATT {name} {dtype}: max abs err "
-                                     f"{err} > {TOL[dtype]}")
-            ms = cuda_ms(lambda: attention_fwd(q, k, v, bias, scale))
-            k_ms = kernel_ms(lambda: attention_fwd(q, k, v, bias, scale))
-            plain_ms = cuda_ms(lambda: attention_plain(q, k, v, bias,
-                                                       scale))
-            mask = None if bias is None else bias.to(dtype)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale)
-
-            lib_ms, lib_k_ms = cuda_ms(sdpa), kernel_ms(sdpa)
-            nbytes, flops = attention_work(q, k, v, bias)
-            b_ms, b_by = bound_ms(nbytes, flops, dtype)
-            key = f"{name}/{str(dtype).split('.')[-1]}"
-            rows[key] = {"shape": [list(q.shape), list(k.shape)],
-                         "max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "library_kernel_ms": lib_k_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
-            log(f"K-ATT {key:28s} q{tuple(q.shape)} k{tuple(k.shape)} "
-                f"err={err:.3g} ms={ms:.4f} kernel_ms={k_ms:.4f} "
-                f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"sdpa_kernel_ms={lib_k_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by}) [{card}]")
+            rows[f"{name}/{str(dtype).split('.')[-1]}"] = attention_row(
+                card, name, q32, k32, v32, bias, dtype)
     return rows
 
 
@@ -1302,10 +1329,11 @@ def serve(card: str, cfg, params, counters) -> dict:
 
 
 def device_ops(fn, reps: int = 1) -> int:
-    """Device ops (kernels and copies) per call of fn: `reps` calls
-    profiled together, the count divided by reps and rounded: one run on
-    the card counted the 14-op extract_candidates chain alone as 13, once,
-    and a count off by one in one call must not decide the check."""
+    """Device ops (kernels and copies) per call of fn, from torch.profiler:
+    `reps` calls profiled together, the count divided by reps and
+    rounded. A window's count moves by a few events with the process's
+    earlier profiles (on the card perceive read 2395-2402 within one
+    run), so no exact check reads it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1319,11 +1347,32 @@ def device_ops(fn, reps: int = 1) -> int:
                      and e.self_device_time_total > 0) / reps)
 
 
+def dispatched_ops(fn) -> int:
+    """The operators one call of fn dispatches through PyTorch's
+    dispatcher (each a device op or a view; the port's own kernels
+    allocate their outputs there): a deterministic count, where
+    torch.profiler's count of a window's device events moves by a few
+    events with the process's earlier profiles."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def perceive_ops(card: str, agent, rgb, dep) -> dict:
-    """Device ops per perceive with K-NMS writing the candidate slots,
-    against the same perceive with the slots taken by the
-    `extract_candidates` chain from K-NMS's map (the earlier path), and
-    that chain's own ops: the first must be the second less the third."""
+    """Ops per perceive with K-NMS writing the candidate slots, against
+    the same perceive with the slots taken by the `extract_candidates`
+    chain from K-NMS's map (the earlier path), and that chain's own ops:
+    the first must be the second less the third, counted exactly by the
+    dispatcher; the device ops of each from torch.profiler beside them."""
     from etpnav_tpu_torch.models import waypoint
     from etpnav_tpu_torch.ops.nms import extract_candidates
     fused = waypoint.heatmap_nms_fused
@@ -1332,22 +1381,36 @@ def perceive_ops(card: str, agent, rgb, dep) -> dict:
         nms_map = fused(logits, k, sigma)[0]
         return (nms_map,) + tuple(extract_candidates(nms_map[:, 1:-1], k))
 
-    ops = device_ops(lambda: agent.perceive(rgb, dep), reps=3)
+    nms_map = torch.rand(8, 122, 12, device=agent.device)
+
+    def perceive():
+        agent.perceive(rgb, dep)
+
+    def chain():
+        extract_candidates(nms_map[:, 1:-1], 5)
+
+    counts = {}
+    for name, fn in (("perceive", perceive), ("chain", chain)):
+        counts[name] = (dispatched_ops(fn), device_ops(fn, reps=3))
     waypoint.heatmap_nms_fused = with_chain
     try:
-        ops_chain = device_ops(lambda: agent.perceive(rgb, dep), reps=3)
+        counts["perceive_with_chain"] = (dispatched_ops(perceive),
+                                         device_ops(perceive, reps=3))
     finally:
         waypoint.heatmap_nms_fused = fused
-    nms_map = torch.rand(8, 122, 12, device="cuda")
-    chain = device_ops(lambda: extract_candidates(nms_map[:, 1:-1], 5),
-                       reps=9)
-    log(f"device ops per perceive: {ops} with K-NMS's slots, {ops_chain} "
-        f"with the extract_candidates chain ({chain} ops) [{card}]")
-    if ops_chain - ops != chain:
-        raise AssertionError(f"perceive: {ops} device ops, {ops_chain} with "
-                             f"the chain of {chain}")
-    return {"perceive_ops": ops, "perceive_ops_with_chain": ops_chain,
-            "chain_ops": chain}
+    (ops, dev), (ops_chain, dev_chain), (chain_ops, dev_chain_alone) = (
+        counts[k] for k in ("perceive", "perceive_with_chain", "chain"))
+    log(f"ops per perceive (dispatched / device): {ops} / {dev} with "
+        f"K-NMS's slots, {ops_chain} / {dev_chain} with the "
+        f"extract_candidates chain ({chain_ops} / {dev_chain_alone} ops) "
+        f"[{card}]")
+    if ops_chain - ops != chain_ops:
+        raise AssertionError(f"perceive: {ops} dispatched ops, {ops_chain} "
+                             f"with the chain of {chain_ops}")
+    return {"perceive_ops": dev, "perceive_ops_with_chain": dev_chain,
+            "chain_ops": dev_chain_alone, "perceive_dispatched": ops,
+            "perceive_dispatched_with_chain": ops_chain,
+            "chain_dispatched": chain_ops}
 
 
 def profile_step(card: str, agent, cfg) -> dict:
@@ -4172,6 +4235,289 @@ def dagger_phase(card: str, counters, tmp: str, device: str = "cuda",
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the learning demo, warm against cold, the offline extractor
+# ---------------------------------------------------------------------------
+
+# the demo's two sessions in one checkpoint directory: the first to
+# iteration 4, the second resumed to 6; 8 envs, an 8-episode held-out
+# eval every 4 iterations (and at iteration 0)
+DEMO_ITERS = (4, 6)
+DEMO_ENVS = 8
+DEMO_EVAL_EPISODES = 8
+# warm against cold, cut to 4 pretraining steps and 2 IL iterations per
+# arm (one 4-episode held-out eval each); the rest at the tool's defaults
+WVC_ARGS = ["--pretrain-steps", "4", "--iters", "2", "--eval-every", "2",
+            "--eval-episodes", "4"]
+WVC_PRETRAIN, WVC_IL = 4, 2 * 2
+# the extractor: 8 panoramas of 36 views and 40 zero-shot classes
+EXTRACT_PANOS, EXTRACT_VIEWS, EXTRACT_CLASSES = 8, 36, 40
+EXTRACT_TIMED = 5
+# launches per extractor call: CLIP's 11 blocks and the cls row (K-ATT),
+# or under the fused configuration K-PRENORM for blocks 1-11, the cls row
+# on K-ATT and one K-GN per GroupNorm of the depth trunk
+EXTRACT_PER_CALL = {
+    "default": {"attention_fwd": 12},
+    "fused": {"attention_fwd": 1, "prenorm_attention": 11,
+              "group_norm_fused": 54},
+}
+# kernels against plain versions, both on the card, per output (the CLIP
+# features with the class logits, the depth means): in fp32 max |diff| <=
+# SLICE_REL_TOL * max |plain| (fp32 sums in another order through 12 CLIP
+# blocks and the ResNet-50 trunk); in bf16 ||diff|| / ||plain|| <=
+# EXTRACT_BF16_L2 (K-ATT rounds p at a running max, K-GN's and
+# K-PRENORM's fp32 sums run in another order and move values at bf16
+# rounding ties, which 12 blocks and 54 GroupNorms carry on)
+EXTRACT_BF16_L2 = 2e-2
+
+
+@contextlib.contextmanager
+def agent_calls():
+    """Counts the calls of every `Agent`'s three programs (perceive,
+    score_navigation, encode_text) by wrapping the class's methods."""
+    from etpnav_tpu_torch.training.agent import Agent
+    calls = collections.Counter()
+    names = {"perceive": "perceive", "score_navigation": "navigation",
+             "encode_text": "text"}
+    saved = {a: Agent.__dict__[a] for a in names}
+    for a, fn in saved.items():
+        setattr(Agent, a, counted(fn, calls, names[a]))
+    try:
+        yield calls
+    finally:
+        for a, fn in saved.items():
+            setattr(Agent, a, fn)
+
+
+def read_counts(counters) -> dict:
+    return {k: c.value for k, c in counters.items()}
+
+
+def demo_phase(card: str, counters, tmp: str, device: str = "cuda",
+               config: str = "r2r") -> dict:
+    """Phase 13 (a) and (b): `learning_demo.main` at `config` width in two
+    sessions in one directory, then `warm_vs_cold.main` cut to WVC_ARGS;
+    each run with every count at 0 before it and read after."""
+    from etpnav_tpu_torch.tools import learning_demo, warm_vs_cold
+    from etpnav_tpu_torch.tools.pretrain_synth import pretrain_setup
+    res = {}
+    ckpt = os.path.join(tmp, "conv")
+    per = PER_CALL["default"]
+    start = 0
+    for session, iters in enumerate(DEMO_ITERS, 1):
+        argv = ["--iters", str(iters), "--eval-every", "4",
+                "--eval-episodes", str(DEMO_EVAL_EPISODES), "--num-envs",
+                str(DEMO_ENVS), "--ckpt-dir", ckpt, "--device", device,
+                "--config", config]
+        for c in counters.values():
+            c.reset()
+        reset_peak()
+        t0 = time.perf_counter()
+        with agent_calls() as calls:
+            lines = learning_demo.main(argv, emit=lambda s: log(f"demo: {s}"))
+            sync()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(counters)
+        learn = iters - start
+        want = {k: sum(per[prog].get(k, 0) * calls[prog] for prog in per)
+                for k in counts}
+        want["attention_fwd"] += LEARN_ATTENTIONS * learn
+        want["attention_bwd"] += LEARN_ATTENTIONS * learn
+        if counts != want:
+            raise AssertionError(f"demo session {session}: launches "
+                                 f"{counts} != {want} for {dict(calls)} "
+                                 f"and {learn} learn steps")
+        head = lines[0]
+        if (session == 1 and head.get("iter") != 0) or (
+                session == 2 and head != {"resumed_at": start}):
+            raise AssertionError(f"demo session {session}: first line "
+                                 f"{head}")
+        evals = [d for d in lines if "IL_loss" in d]
+        if ([d["iter"] for d in evals] != [iters]
+                or not np.isfinite(evals[0]["IL_loss"])
+                or evals[0]["n_episodes"] != DEMO_EVAL_EPISODES):
+            raise AssertionError(f"demo session {session}: evals {evals}")
+        left = sorted(os.listdir(ckpt))
+        if left != [f"ckpt_iter{iters}.pt"]:
+            raise AssertionError(f"demo session {session}: checkpoints "
+                                 f"{left}")
+        res[f"session{session}"] = {
+            "argv": argv, "seconds": seconds, "calls": dict(calls),
+            "learn_steps": learn, "launches": counts,
+            "launches_per_iteration": {k: v / learn for k, v in
+                                       counts.items() if v},
+            "eval": evals[0], "checkpoints": left, "peak_gib": peak_gib()}
+        log(f"demo session {session} ({config}, {DEMO_ENVS} envs): "
+            f"{json.dumps(res[f'session{session}'])} [{card}]")
+        start = iters
+    free_cache()
+
+    for c in counters.values():
+        c.reset()
+    reset_peak()
+    lines = []
+    argv = WVC_ARGS + ["--device", device] + (
+        ["--tiny"] if config == "tiny" else [])
+    t0 = time.perf_counter()
+
+    def emit(s):
+        lines.append(json.loads(s))
+        log(f"warm_vs_cold: {s}")
+    with agent_calls() as calls:
+        last = warm_vs_cold.main(argv, emit=emit)
+        sync()
+    counts = read_counts(counters)
+    p = pretrain_setup(config, WVC_PRETRAIN, 16)[0].planner
+    n_bwd = pretrain_attentions(p) * WVC_PRETRAIN + LEARN_ATTENTIONS * WVC_IL
+    arms = [(d["arm"], d["iter"]) for d in lines if "arm" in d]
+    plain = {k: v for k, v in counts.items() if "plain" in k and v}
+    if (counts["attention_bwd"] != n_bwd or plain
+            or counts["attention_fwd"] == 0
+            or counts["heatmap_nms_fused"] != calls["perceive"]
+            or arms != [("cold", 2), ("warm", 2)]
+            or lines[-1] != last
+            or set(last["summary"]) != {"cold", "warm", "delta_IL_loss"}
+            or not all(np.isfinite(last["summary"][a]["IL_loss"])
+                       for a in ("cold", "warm"))):
+        raise AssertionError(f"warm_vs_cold: launches {counts} (K-ATT-BWD "
+                             f"want {n_bwd}), calls {dict(calls)}, lines "
+                             f"{lines}")
+    res["warm_vs_cold"] = {"argv": argv,
+                           "seconds": time.perf_counter() - t0,
+                           "launches": counts, "calls": dict(calls),
+                           "lines": lines, "peak_gib": peak_gib()}
+    log(f"warm_vs_cold ({config}): {json.dumps(res['warm_vs_cold'])} "
+        f"[{card}]")
+    free_cache()
+    return res
+
+
+def extract_attention_row(card: str) -> dict:
+    """K-ATT at the extractor's CLIP shape, q/k/v (288, 12, 50, 64) in
+    the natural layout (8 panoramas x 36 views), bf16, against its plain
+    version, beside SDPA and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B = EXTRACT_PANOS * EXTRACT_VIEWS
+    q, k, v = (torch.randn(B, 50, 768, generator=g, device="cuda")
+               .view(B, 50, 12, 64).transpose(1, 2) for _ in range(3))
+    return attention_row(card, "extract_natural", q, k, v, None,
+                         torch.bfloat16)
+
+
+@contextlib.contextmanager
+def extract_on_plain_versions():
+    """K-ATT's, K-GN's and K-PRENORM's wrappers sent to their plain
+    versions, on the card's tensors too, as the towers call them."""
+    from etpnav_tpu_torch.models import clip_vit, depth_resnet
+    from etpnav_tpu_torch.ops import fused_groupnorm, fused_prenorm
+    restore = attention_on_plain_versions()
+    gn, pre = depth_resnet.group_norm_fused, clip_vit.prenorm_attention
+    depth_resnet.group_norm_fused = fused_groupnorm.group_norm_plain
+    clip_vit.prenorm_attention = fused_prenorm.prenorm_attention_plain
+    try:
+        yield
+    finally:
+        restore()
+        depth_resnet.group_norm_fused, clip_vit.prenorm_attention = gn, pre
+
+
+def extract_phase(card: str, params, counters, device: str = "cuda",
+                  base=None) -> dict:
+    """Phase 13 (c): `FeatureExtractor` at `base` (r2r_config()) width
+    over EXTRACT_PANOS panoramas of EXTRACT_VIEWS views with a seeded
+    EXTRACT_CLASSES-class class_proj, in the default and the fused
+    configuration, fp32 and bf16: exact launches per call, the features
+    through the kernels against the same call on the plain versions on
+    the card, and in bf16 ms per panorama and the peak memory. `params`
+    (AgentParams) has its towers moved to `device`."""
+    from etpnav_tpu_torch.config import r2r_config
+    from etpnav_tpu_torch.data.feature_pipeline import FeatureExtractor
+    cfg = base if base is not None else r2r_config()
+    rng = np.random.default_rng(13)
+    H, Hd = cfg.clip.image_size, cfg.depth.input_size
+    rgb = rng.integers(0, 256, (EXTRACT_PANOS, EXTRACT_VIEWS, H, H, 3),
+                       np.uint8)
+    dep = rng.random((EXTRACT_PANOS, EXTRACT_VIEWS, Hd, Hd, 1), np.float32)
+    proj = rng.standard_normal((EXTRACT_CLASSES, cfg.clip.output_dim)
+                               ).astype(np.float32)
+    plain_of = {"attention_fwd": "attention_plain",
+                "group_norm_fused": "group_norm_plain",
+                "prenorm_attention": "prenorm_attention_plain"}
+    res = {}
+    for name, c in (("default", cfg), ("fused", fused_config(cfg))):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{name}/{str(dtype).split('.')[-1]}"
+            ex = FeatureExtractor(c, params, batch_panos=EXTRACT_PANOS,
+                                  class_proj=proj, device=device,
+                                  dtype=dtype)
+            for cnt in counters.values():
+                cnt.reset()
+            got = ex(rgb, dep)
+            sync()
+            counts = read_counts(counters)
+            want = {k: EXTRACT_PER_CALL[name].get(k, 0) for k in counters}
+            if counts != want:
+                raise AssertionError(f"extract {key}: launches {counts} != "
+                                     f"{want}")
+            for cnt in counters.values():
+                cnt.reset()
+            with extract_on_plain_versions():
+                ref = ex(rgb, dep)
+                sync()
+            plain = read_counts(counters)
+            want_p = {k: 0 for k in counters}
+            for k, n in EXTRACT_PER_CALL[name].items():
+                want_p[plain_of[k]] = n
+            if plain != want_p:
+                raise AssertionError(f"extract {key}: plain calls {plain} "
+                                     f"!= {want_p}")
+            errs = {}
+            for out, g, r in zip(("rgb", "depth"), got, ref):
+                if g.shape != r.shape or not np.isfinite(g).all():
+                    raise AssertionError(f"extract {key} {out}: "
+                                         f"{g.shape} {r.shape}")
+                if dtype == torch.float32:
+                    err = np.abs(g - r).max() / np.abs(r).max()
+                    tol = SLICE_REL_TOL
+                else:
+                    err = np.linalg.norm(g - r) / np.linalg.norm(r)
+                    tol = EXTRACT_BF16_L2
+                if not err <= tol:
+                    raise AssertionError(f"extract {key} {out}: error "
+                                         f"{err} > {tol}")
+                errs[out] = {"err": float(err), "tol": tol}
+            row = {"rgb_shape": list(got[0].shape),
+                   "depth_shape": list(got[1].shape),
+                   "launches_per_call": counts, "vs_plain": errs}
+            if dtype == torch.bfloat16:
+                reset_peak()
+                dev_rgb = torch.from_numpy(rgb).to(device)
+                dev_dep = torch.from_numpy(dep).to(device)
+                ms, ms_dev = [], []
+                for _ in range(1 + EXTRACT_TIMED):
+                    sync()
+                    t0 = time.perf_counter()
+                    ex(rgb, dep)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    ex.encode(dev_rgb, dev_dep)
+                    sync()
+                    ms_dev.append((time.perf_counter() - t0) * 1e3)
+                row.update({
+                    "ms_per_pano": statistics.median(ms[1:]) / EXTRACT_PANOS,
+                    "ms_per_pano_on_device":
+                        statistics.median(ms_dev[1:]) / EXTRACT_PANOS,
+                    "peak_gib": peak_gib()})
+                del dev_rgb, dev_dep
+            res[key] = row
+            log(f"extract {key} ({EXTRACT_PANOS} panoramas x "
+                f"{EXTRACT_VIEWS} views, {EXTRACT_CLASSES} classes): "
+                f"{json.dumps(row)} [{card}]")
+            del ex
+    free_cache()
+    return res
+
+
 TC_DESIGN = "tensor cores (mma.sync)"
 
 # launches per call of each served program: K-ATT 16 per perceive (11
@@ -4392,6 +4738,14 @@ def main() -> int:
         dag = dagger_phase(card, counters, tmp)
     torch.cuda.empty_cache()
     log(f"phase 12 done at {time.perf_counter() - T0:.0f} s")
+    # phase 13
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="etpnav_demo_") as tmp:
+        demo = demo_phase(card, counters, tmp)
+    ext_rows = extract_phase(card, copy.deepcopy(host_params), counters)
+    ext_att = extract_attention_row(card)
+    demo["seconds"] = time.perf_counter() - t13
+    log(f"phase 13 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -4404,6 +4758,14 @@ def main() -> int:
     kb = block_rows["text0/bfloat16"]
     t1 = t12_rows["head_out/bfloat16"]
     t2 = t12_rows["cheap/bfloat16"]
+    demo_l = collections.Counter()
+    for sess in ("session1", "session2"):
+        demo_l.update(demo[sess]["launches"])
+    wvc_l = demo["warm_vs_cold"]["launches"]
+
+    def ext_l(name):
+        return {cfg_name: ext_rows[f"{cfg_name}/bfloat16"][
+            "launches_per_call"][name] for cfg_name in ("default", "fused")}
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "launches_runner": run_launches.get("attention_fwd", 0),
@@ -4411,6 +4773,10 @@ def main() -> int:
          "launches_feed": feed["launches"].get("attention_fwd", 0),
          "launches_dagger": dag["launches"].get("attention_fwd", 0),
          "dagger_shapes": {k: r["fwd"] for k, r in dag_rows.items()},
+         "launches_demo": demo_l["attention_fwd"],
+         "launches_warm_vs_cold": wvc_l["attention_fwd"],
+         "launches_extract_per_call": ext_l("attention_fwd"),
+         "extract_shape": ext_att,
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
                      "fused_attention_nhd; :123 fused_attention; "
@@ -4427,6 +4793,8 @@ def main() -> int:
          "launches_runner": run_launches.get("heatmap_nms_fused", 0),
          "launches_feed": feed["launches"].get("heatmap_nms_fused", 0),
          "launches_dagger": dag["launches"].get("heatmap_nms_fused", 0),
+         "launches_demo": demo_l["heatmap_nms_fused"],
+         "launches_warm_vs_cold": wvc_l["heatmap_nms_fused"],
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
          "launches": res["counts"]["heatmap_nms_fused"],
@@ -4441,6 +4809,7 @@ def main() -> int:
          "perceive_ops_with_chain": res["perceive_ops_with_chain"]},
         {"name": "group_norm_fused", "route": "cuda",
          "launches_runner": run_launches.get("group_norm_fused", 0),
+         "launches_extract_per_call": ext_l("group_norm_fused"),
          "source": "etpnav_tpu_torch/csrc/groupnorm.cu",
          "replaces": "etpnav_tpu/ops/pallas_groupnorm.py:57 "
                      "group_norm_fused",
@@ -4462,6 +4831,7 @@ def main() -> int:
                                       for r in gn_bf16.values())},
         {"name": "prenorm_attention", "route": "cuda",
          "launches_runner": run_launches.get("prenorm_attention", 0),
+         "launches_extract_per_call": ext_l("prenorm_attention"),
          "source": "etpnav_tpu_torch/csrc/prenorm_attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:559 "
                      "fused_prenorm_attention_v2; :456 "
@@ -4485,6 +4855,8 @@ def main() -> int:
          "launches_feed": feed["launches"].get("attention_bwd", 0),
          "launches_dagger": dag["launches"].get("attention_bwd", 0),
          "dagger_shapes": {k: r["bwd"] for k, r in dag_rows.items()},
+         "launches_demo": demo_l["attention_bwd"],
+         "launches_warm_vs_cold": wvc_l["attention_bwd"],
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -4598,6 +4970,19 @@ def main() -> int:
         f"{max(up['peak_gib'], tr_r['peak_gib']):.2f} GiB; eval SR "
         f"{ev['success']:.4f} SPL {ev['spl']:.4f} (random weights); phase "
         f"12 {dag['seconds']:.0f} s [{card}]")
+    s2 = demo["session2"]["eval"]
+    ev_ex = {k: r for k, r in ext_rows.items() if k.endswith("bfloat16")}
+    log(f"demo (R2R width, {DEMO_ENVS} envs): IL loss {s2['IL_loss']}, "
+        f"s per iteration {s2['sec_per_iter']} (rollout {s2['rollout_s']}, "
+        f"learn {s2['learn_s']}), resumed at {DEMO_ITERS[0]}, one "
+        f"checkpoint left; warm_vs_cold summary "
+        f"{json.dumps(demo['warm_vs_cold']['lines'][-1]['summary'])}; "
+        f"extract ms per panorama "
+        + ", ".join(f"{k.split('/')[0]} {r['ms_per_pano']:.2f} "
+                    f"(on device {r['ms_per_pano_on_device']:.2f})"
+                    for k, r in ev_ex.items())
+        + f", peak {max(r['peak_gib'] for r in ev_ex.values()):.2f} GiB; "
+        f"phase 13 {demo['seconds']:.0f} s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ trunk's blocks in a list).
    the tree of the JAX `init_pretrain_params` and returns loaded
    `PretrainParams`, and `rec_vlnbert_params_from_jax`,
    `cma_params_from_jax` and `instruction_encoder_from_jax` do the same
-   for the legacy DAgger policies:
+   for the legacy DAgger policies, and `imagenet_resnet_params_from_jax`
+   for the legacy ImageNet ResNet-50 RGB encoder:
 
 - dense `w` goes from (in, out) to PyTorch's (out, in);
 - convolution kernels go from HWIO to OIHW;
@@ -158,6 +159,18 @@ def pretrain_params_from_jax(tree: Any, cfg: ExperimentConfig,
     from etpnav_tpu_torch.training.pretrain import PretrainParams
     tasks = cfg.pretrain.tasks if tasks is None else tasks
     params = PretrainParams(cfg.planner, tasks, cfg.pretrain.image_prob_size)
+    load_jax_tree(params, tree)
+    return params
+
+
+def imagenet_resnet_params_from_jax(tree: Any):
+    """The JAX `init_imagenet_resnet_params` tree (or the tree of either
+    package's `convert_torchvision_resnet50`) as numpy ->
+    `ImagenetResNetParams` (on the CPU); the spatial embeddings are
+    there when the tree has them."""
+    from etpnav_tpu_torch.models.imagenet_resnet import ImagenetResNetParams
+    params = ImagenetResNetParams(
+        spatial_output="spatial_embeddings" in _as_dict(tree))
     load_jax_tree(params, tree)
     return params
 

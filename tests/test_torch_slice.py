@@ -255,7 +255,16 @@ def test_port_imports_no_jax():
             "etpnav_tpu_torch/training/pipeline.py",
             "etpnav_tpu_torch/training/dagger.py",
             "etpnav_tpu_torch/models/cma.py",
-            "etpnav_tpu_torch/models/rec_vlnbert.py"} <= names
+            "etpnav_tpu_torch/models/rec_vlnbert.py",
+            "etpnav_tpu_torch/tools/learning_demo.py",
+            "etpnav_tpu_torch/tools/record_convergence.py",
+            "etpnav_tpu_torch/tools/pretrain_synth.py",
+            "etpnav_tpu_torch/tools/warm_vs_cold.py",
+            "etpnav_tpu_torch/tools/learn_ab.py",
+            "etpnav_tpu_torch/data/feature_pipeline.py",
+            "etpnav_tpu_torch/ops/image.py",
+            "etpnav_tpu_torch/models/imagenet_resnet.py",
+            "etpnav_tpu_torch/utils/aux_losses.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
