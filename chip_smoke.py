@@ -147,7 +147,10 @@ Phases, each reported on its own lines:
   12. the legacy DAgger trainer: K-ATT (dropout 0 and 0.1) and K-ATT-BWD
      against their plain versions at the recurrent VLN-BERT's fp32 shapes
      with its -1e9 mask bias, (Lq, Lk) = (80, 80), (7, 79) and (7, 7) at
-     B = 8, beside SDPA and the bound; then `run_config` of
+     B = 8, beside SDPA and the bound (measured right after phase 3c, as
+     is phase 13's K-ATT at the extractor's shape: after phase 11 the
+     profiler has returned no kernel record in some runs); then
+     `run_config` of
      configs/dagger_r2r.yaml (full R2R width; only the counts of
      DAGGER_CUTS are cut, and printed) on GeometricNavEnv(8), each stage
      with every count at 0 before it and read after, exact launch counts
@@ -160,12 +163,12 @@ Phases, each reported on its own lines:
   13. the learning demo, warm against cold and the offline extractor at
      r2r_config() width, each run with every count at 0 before it and
      read after: (a) `tools.learning_demo.main` with 8 envs to iteration
-     4 with an 8-episode held-out eval at 0 and 4, then a second session
-     in the same directory that prints `resumed_at` 4 and runs to 6, one
+     2 with an 8-episode held-out eval at 0 and 2, then a second session
+     in the same directory that prints `resumed_at` 2 and runs to 4, one
      checkpoint left after each; a finite IL loss; launches exact (the
      rollout's and the eval's programs as in phase 4, and 19 K-ATT + 19
      K-ATT-BWD per learn step), reported per iteration; (b)
-     `tools.warm_vs_cold.main` cut to 4 pretraining steps and 2
+     `tools.warm_vs_cold.main` cut to 2 pretraining steps and 2
      iterations per arm: 19 K-ATT-BWD per pretraining and per IL step,
      one K-NMS per perceive, no plain call, both arms' lines and the
      summary line; (c) `FeatureExtractor` over 8 panoramas x 36 views
@@ -175,13 +178,40 @@ Phases, each reported on its own lines:
      the plain versions on the card, then in bf16 ms per panorama and
      the peak memory; and K-ATT alone at the extractor's shape q/k/v
      (288, 12, 50, 64) beside its plain version, SDPA and the bound;
+  14. distribution and the eval videos at r2r_config() width: (b) and (c)
+     in one world of two gloo ranks sharing the card (torch.multiprocessing
+     spawns them, each child killed at its time limit; the kernels are
+     built before): (b) dp 2, each rank's learn step on its half of phase
+     7's recorded B = 8 interval (fp32, dropout off) against one process
+     on all 8: the global loss, every planner parameter after AdamW, and
+     19 K-ATT + 19 K-ATT-BWD per rank per step; the learn-step p50 of dp
+     2 against dp 1 in turns (two ranks on one card, not a scaling
+     number); (c) mp 2 with dropout on, a pretraining SAP and MLM step
+     (the vocabulary split in two) at the config's precision (bf16
+     planner) and in fp32, each against one-process trainers stepping
+     beside it in the same rank from the same seeds (the loss, every
+     gathered gradient, the whole state after; bf16 held against fp32
+     as phase 7b holds it, fp32 at LEARN_REL_TOL), and one bf16
+     fine-tune iteration (mp rank 0 rolls out and broadcasts the record)
+     against one process's learn step on that record; the replicated
+     parameters bit-equal on both ranks; the first K-ATT and K-ATT-BWD
+     launch of mp rank 1 (head base 6 of 12) in each precision captured
+     and held against the plain versions; K-ATT's dropout
+     bits at head base 6 read off the kernel against the global mask's
+     slice; (d) `torchrun --nproc_per_node 2 -m etpnav_tpu_torch.run`
+     with MESH dp 2 and backend gloo trains 2 iterations, then `run_config
+     (run_type="eval", video=True)` evaluates 2 episodes from its
+     checkpoint and the videos are read back (mp4 through
+     cv2.VideoCapture, or the PNG directory); (a) a one-rank NCCL world:
+     all-reduce, sync_max, all_gather_object;
   6. one JSON line with every kernel's numbers, then the card line, then
      `{"ok": true, "device": {...}}` as the last line.
 
 Any failure raises, so the script exits non-zero and prints no result;
 it does the same when no CUDA device is present. `--soak-gemm N` runs
 only the GEMM soak at N launches (for a run under compute-sanitizer);
-`--trap-child LIB` is phase 3d's child.
+`--trap-child LIB` is phase 3d's child; phase 14's ranks import this file
+and run `dist_child`.
 """
 
 from __future__ import annotations
@@ -193,6 +223,7 @@ import dataclasses
 import json
 import os
 import statistics
+import socket
 import subprocess
 import sys
 import tempfile
@@ -252,27 +283,77 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int = 20, tries: int = 3) -> float:
+#: (seconds into the run, µs from a profile window's first host op to its
+#: first kernel) of every kernel_ms window: the host and device clocks of
+#: torch.profiler as the run ages
+PROFILER_SKEW: list = []
+
+
+def kernel_ms(fn, iters: int = 20, tries: int = 8) -> float:
     """Device time per call of the kernels fn() launches, from
     torch.profiler's CUDA kernel events over `iters` calls: the kernels'
     own time, without the host cost of the wrapper around them. Now and
-    then the profiler hands back no device event at all (seen once in
-    ~150 profiles on the H100): that window is profiled again."""
+    then the profiler hands back no device event at all, only the host's
+    ops and CUPTI's 'Activity Buffer Request' (on the H100: once in ~150
+    profiles early in a run; late in a run, after phase 11, in every
+    window of a call in 3 of 4 runs). Such a window is logged and
+    profiled again with host time padded around the calls, doubling from
+    50 ms: the profiler drops device records that fall outside its
+    window, which a drift between the host's and the device's clocks
+    would do; the log says which pad brought the records back."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    pad = 0.0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
         if total > 0:
+            ev = prof.events()
+            starts = {d: min((e.time_range.start for e in ev
+                              if e.device_type == d), default=None)
+                      for d in (torch.autograd.DeviceType.CPU,
+                                torch.autograd.DeviceType.CUDA)}
+            if None not in starts.values():
+                PROFILER_SKEW.append(
+                    (round(time.perf_counter() - T0, 1),
+                     starts[torch.autograd.DeviceType.CUDA]
+                     - starts[torch.autograd.DeviceType.CPU]))
+            if pad:
+                log(f"kernel_ms: device records back with {pad:.2f} s of "
+                    "host time around the calls")
             return total / 1e3 / iters
+        ev = prof.events()
+        log(f"kernel_ms: an empty window (pad {pad:.2f} s): {len(ev)} "
+            f"events, by device "
+            f"{dict(collections.Counter(str(e.device_type) for e in ev))}, "
+            f"device time {sum(e.device_time_total for e in ev)}, keys "
+            f"{sorted({e.key for e in ev})[:8]}")
+        pad = 0.05 if pad == 0.0 else 2 * pad
     raise AssertionError(f"kernel_ms: the profiler saw no device time in "
                          f"{tries} windows")
+
+
+def skew_summary() -> dict:
+    """PROFILER_SKEW in ten slices of the run: each slice's seconds and
+    its least and largest µs."""
+    if not PROFILER_SKEW:
+        return {}
+    n = len(PROFILER_SKEW)
+    out = {}
+    for i in range(10):
+        part = PROFILER_SKEW[i * n // 10:(i + 1) * n // 10]
+        if part:
+            us = [u for _, u in part]
+            out[f"{part[0][0]}-{part[-1][0]} s"] = [min(us), max(us)]
+    return out
 
 
 def kernel_split(fn, iters: int = 20) -> list:
@@ -3328,9 +3409,9 @@ def crash_and_learn_spies():
             seen["restarts"] = max(seen["restarts"], sum(self._restarts))
         return res
 
-    def spy_learn(planner, optimizer, cfg_, batch, generator=None):
+    def spy_learn(planner, optimizer, cfg_, batch, *rest):
         seen["learn_G"].append(int(batch["gmap_mask"].shape[2]))
-        return learn(planner, optimizer, cfg_, batch, generator)
+        return learn(planner, optimizer, cfg_, batch, *rest)
 
     ProcessVectorEnv.step, finetune.learn_step = spy_step, spy_learn
     try:
@@ -4240,16 +4321,17 @@ def dagger_phase(card: str, counters, tmp: str, device: str = "cuda",
 # ---------------------------------------------------------------------------
 
 # the demo's two sessions in one checkpoint directory: the first to
-# iteration 4, the second resumed to 6; 8 envs, an 8-episode held-out
-# eval every 4 iterations (and at iteration 0)
-DEMO_ITERS = (4, 6)
+# iteration 2, the second resumed to 4; 8 envs, an 8-episode held-out
+# eval every 2 iterations (and at iteration 0): short, to keep the whole
+# run near half its time limit
+DEMO_ITERS = (2, 4)
 DEMO_ENVS = 8
 DEMO_EVAL_EPISODES = 8
-# warm against cold, cut to 4 pretraining steps and 2 IL iterations per
+# warm against cold, cut to 2 pretraining steps and 2 IL iterations per
 # arm (one 4-episode held-out eval each); the rest at the tool's defaults
-WVC_ARGS = ["--pretrain-steps", "4", "--iters", "2", "--eval-every", "2",
+WVC_ARGS = ["--pretrain-steps", "2", "--iters", "2", "--eval-every", "2",
             "--eval-episodes", "4"]
-WVC_PRETRAIN, WVC_IL = 4, 2 * 2
+WVC_PRETRAIN, WVC_IL = 2, 2 * 2
 # the extractor: 8 panoramas of 36 views and 40 zero-shot classes
 EXTRACT_PANOS, EXTRACT_VIEWS, EXTRACT_CLASSES = 8, 36, 40
 EXTRACT_TIMED = 5
@@ -4305,7 +4387,7 @@ def demo_phase(card: str, counters, tmp: str, device: str = "cuda",
     per = PER_CALL["default"]
     start = 0
     for session, iters in enumerate(DEMO_ITERS, 1):
-        argv = ["--iters", str(iters), "--eval-every", "4",
+        argv = ["--iters", str(iters), "--eval-every", str(DEMO_ITERS[0]),
                 "--eval-episodes", str(DEMO_EVAL_EPISODES), "--num-envs",
                 str(DEMO_ENVS), "--ckpt-dir", ckpt, "--device", device,
                 "--config", config]
@@ -4518,6 +4600,668 @@ def extract_phase(card: str, params, counters, device: str = "cuda",
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distribution (parallel/mesh.py) and the eval videos
+# ---------------------------------------------------------------------------
+
+#: the head base of mp rank 1 at R2R width (12 heads over mp 2)
+HEAD_BASE = 6
+#: each spawned world's children are killed after this many seconds
+DIST_LIMIT_S = 300
+#: learn steps per turn of the dp 2 / dp 1 timing (A B B A)
+DIST_TURN_STEPS = 3
+DIST_PRETRAIN_BATCH = 8
+DIST_MP_ENVS = 4
+#: the runner under torchrun: 2 ranks x 4 envs, 2 iterations; then 2
+#: eval episodes with videos
+TORCHRUN_ENVS, TORCHRUN_ITERS, VIDEO_EPISODES = 4, 2, 2
+#: two AdamW moves at IL.lr = 1e-5: a near-zero gradient summed in
+#: another order may take either sign
+DIST_PARAM_ATOL = 2e-5
+#: two pretraining steps' worth of the optimizer's largest move (lr 5e-5
+#: in warmup): a near-zero gradient may take either sign
+DIST_PRETRAIN_ATOL = 1e-4
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, target, world: int, address: str, threads: int,
+               args: tuple) -> None:
+    torch.set_num_threads(threads)
+    target(rank, world, address, *args)
+
+
+def spawn_ranks(target, world: int, args: tuple, limit: float,
+                threads: int) -> None:
+    """target(rank, world, address, *args) in `world` fresh processes
+    (torch.multiprocessing, spawn), `address` the "localhost:PORT" that
+    `init_distributed` takes. A child that fails fails the call and
+    torch.multiprocessing ends its peers; past `limit` seconds every child
+    still running is killed and the call raises."""
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(target, world, f"localhost:{free_port()}",
+                          threads, tuple(args)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + limit
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{target.__name__}: ranks still "
+                                     f"running after {limit:.0f} s; killed")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def dist_counters(device: str = "cuda") -> dict:
+    """The counters of the kernels on phase 14's path; on the CPU (a
+    rehearsal) the plain versions' calls under the kernels' names."""
+    from etpnav_tpu_torch.ops import fused_attention as fa
+    from etpnav_tpu_torch.ops import fused_nms
+    if device == "cpu":
+        return {"attention_fwd": fa.attention_plain_calls,
+                "attention_bwd": fa.attention_bwd_plain_calls,
+                "heatmap_nms_fused": fused_nms.heatmap_nms_plain_calls}
+    return {"attention_fwd": fa.attention_fwd_launches,
+            "attention_plain": fa.attention_plain_calls,
+            "attention_bwd": fa.attention_bwd_launches,
+            "attention_bwd_plain": fa.attention_bwd_plain_calls,
+            "heatmap_nms_fused": fused_nms.heatmap_nms_launches,
+            "heatmap_nms_plain": fused_nms.heatmap_nms_plain_calls}
+
+
+def read_reset(counters: dict) -> dict:
+    """Every count, read after a synchronize, then set to 0."""
+    sync()
+    out = {k: c.value for k, c in counters.items()}
+    for c in counters.values():
+        c.reset()
+    return out
+
+
+def rows_of(rec, lo: int, hi: int):
+    """Rows lo..hi-1 of a recorded interval."""
+    return dataclasses.replace(rec, **{
+        f.name: getattr(rec, f.name)[lo:hi]
+        for f in dataclasses.fields(rec)})
+
+
+def replicas_equal(mesh, module) -> int:
+    """Global mp index 0's replicated parameters broadcast over the mp
+    group; raises unless this rank's are bit-equal. Returns their
+    number."""
+    import torch.distributed as dist
+    ps = [p.detach() for p in module.parameters() if not hasattr(p, "tp")]
+    flat = torch.cat([p.reshape(-1) for p in ps])
+    theirs = flat.clone()
+    dist.broadcast(theirs, mesh.mp_src, group=mesh.mp_group)
+    if not torch.equal(flat, theirs):
+        raise AssertionError(f"mp rank {mesh.mp_index}: replicated "
+                             "parameters differ from mp rank 0's")
+    return len(ps)
+
+
+def _dist_dp2(mesh, inp, device, counters) -> dict:
+    """(b) dp 2: each rank learns on its half of the recorded interval
+    (dropout off); then the learn step in turns, dp 2 (both ranks) and
+    dp 1 (rank 0 alone on all rows)."""
+    import torch.distributed as dist
+
+    from etpnav_tpu_torch.models.planner import PlannerParams
+    from etpnav_tpu_torch.training import finetune as ft
+    cfg = inp["cfg"]
+    planner = PlannerParams(cfg.planner)
+    planner.load_state_dict({k[len("planner."):]: v for k, v
+                             in inp["agent"].items()
+                             if k.startswith("planner.")})
+    planner.to(device)
+    opt = ft.make_il_optimizer(cfg, planner)
+    rec = inp["rec"]
+    half = rec.step_valid.shape[0] // 2
+    mine = ft.bucket_record(rows_of(rec, half * mesh.rank,
+                                    half * (mesh.rank + 1)), cfg.il)
+    whole = ft.bucket_record(rec, cfg.il)       # both ranks: the sync
+    batch = ft.record_to_batch(mine, device)
+    read_reset(counters)
+    loss = float(ft.learn_step(planner, opt, cfg, batch, None, mesh))
+    res = {"loss": loss, "counts": read_reset(counters),
+           "valid": int(mine.step_valid.sum()),
+           "bucket": list(mine.step_valid.shape[1:]) + [
+               mine.gmap_mask.shape[2]]}
+    if mesh.rank == 0:
+        res["planner"] = {k: v.to("cpu", copy=True) for k, v
+                          in planner.state_dict().items()}
+    whole_batch = ft.record_to_batch(whole, device)
+    times = {"dp2": [], "dp1": []}
+    for turn in ("dp2", "dp1", "dp1", "dp2"):
+        dist.barrier()
+        if turn == "dp1" and mesh.rank != 0:
+            continue
+        for _ in range(DIST_TURN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            if turn == "dp2":
+                float(ft.learn_step(planner, opt, cfg, batch, None, mesh))
+            else:
+                float(ft.learn_step(planner, opt, cfg, whole_batch))
+            sync()
+            times[turn].append((time.perf_counter() - t0) * 1e3)
+    dist.barrier()
+    res["times_ms"] = times
+    read_reset(counters)
+    return res
+
+
+def _grad_dists(params, refs: dict) -> dict:
+    """||g - g_ref|| / ||g_ref|| over every gradient of `params` against
+    each one-process module of `refs`, by name; the split gradients are
+    gathered whole once (a collective over the mp group)."""
+    from etpnav_tpu_torch.parallel import mesh as M
+    num = dict.fromkeys(refs, 0.0)
+    den = dict.fromkeys(refs, 0.0)
+    ref_params = {k: dict(m.named_parameters()) for k, m in refs.items()}
+    for name, p in params.named_parameters():
+        if any((p.grad is None) != (r[name].grad is None)
+               for r in ref_params.values()):
+            raise AssertionError(f"mp 2: {name} has a gradient on one side")
+        if p.grad is None:
+            continue
+        spec = getattr(p, "tp", None)
+        g = (M.gather_tensor(p.grad, spec) if spec is not None
+             else p.grad).double()
+        for k, r in ref_params.items():
+            w = r[name].grad.double()
+            num[k] += float((g - w).pow(2).sum())
+            den[k] += float(w.pow(2).sum())
+    return {k: (num[k] / den[k]) ** 0.5 for k in refs}
+
+
+def check_bf16_step(what: str, loss: float, one: dict,
+                    grad_rel: dict = None, one_grad_rel: float = None):
+    """(c) at bf16 is held as phase 7b holds the bf16 learn step: at R2R
+    width with random weights, some LayerNorms see nearly constant rows
+    and blow a single bf16 rounding up, so an mp rank's bf16 step and one
+    process's bf16 step (which differ only in the order of fp32 sums)
+    part by about as much as either parts from fp32 (on the H100 the mp
+    SAP loss parted from one process's bf16 loss by rel 1.1e-3). So each
+    is held against one process's fp32 step:
+    the loss within BF16_LOSS_REL, and the gathered gradients' relative
+    L2 distance from fp32 within a factor BF16_VS_PLAIN of one process's
+    bf16 step's, both ways (an fp32 path in place of the bf16 one would
+    come out near 0)."""
+    rel = abs(loss - one["fp32"]) / abs(one["fp32"])
+    if rel > BF16_LOSS_REL:
+        raise AssertionError(f"{what}: bf16 loss {loss} vs one process's "
+                             f"fp32 {one['fp32']} (rel {rel})")
+    if grad_rel is None:
+        return
+    ratio = grad_rel["fp32"] / one_grad_rel
+    if not 1 / BF16_VS_PLAIN <= ratio <= BF16_VS_PLAIN:
+        raise AssertionError(f"{what}: gradients {grad_rel['fp32']} from "
+                             f"one process's fp32 (relative L2), one "
+                             f"process's bf16 {one_grad_rel}")
+
+
+def _dist_mp2(mesh, inp, device, counters) -> dict:
+    """(c) mp 2, dropout on: a pretraining SAP and MLM step at R2R width
+    (the vocabulary split in two) at the config's own precision (bf16
+    planner) and in fp32, each held against one-process trainers in this
+    rank stepping beside it from the same seeds (loss, every gathered
+    gradient, the whole state after); one fine-tune iteration at the
+    config's precision with the record broadcast; the first K-ATT and
+    K-ATT-BWD launch of mp rank 1 (heads 6..11) with dropout in each
+    precision captured and held against the plain versions."""
+    from etpnav_tpu_torch.ops import fused_attention as fa
+    from etpnav_tpu_torch.parallel import mesh as M
+    from etpnav_tpu_torch.training.agent import AgentParams
+    from etpnav_tpu_torch.training.finetune import FinetuneTrainer
+    from etpnav_tpu_torch.training.pretrain import PretrainTrainer
+    cfg = inp["cfg_mp"]
+    cfgs = {"bf16": cfg, "fp32": inp["cfg"]}
+    head_base = cfg.planner.num_heads // 2
+    captured = {}
+    fwd, bwd = fa.attention_fwd, fa.attention_bwd
+
+    def capture(name, fn, seed_at):
+        # the first launch of this rank's heads with dropout on, per dtype
+        def wrapper(*a, **kw):
+            key = (name, a[0].dtype)
+            if (key not in captured and kw.get("head_base") == head_base
+                    and a[seed_at] is not None):
+                captured[key] = ([t.clone() if torch.is_tensor(t) else t
+                                  for t in a], dict(kw))
+            return fn(*a, **kw)
+        return wrapper
+    res = {}
+    for prec, c in cfgs.items():
+        tr = PretrainTrainer(c, inp["shapes"], seed=0, device=device,
+                             mesh=mesh)
+        # one process in bf16 and in fp32, from the same seeds
+        refs = {k: PretrainTrainer(rc, inp["shapes"], seed=0, device=device)
+                for k, rc in cfgs.items() if prec == "bf16" or k == prec}
+        steps = {}
+        for task in ("sap", "mlm"):
+            batch = tr._put(tr.sampler.sample_batch(DIST_PRETRAIN_BATCH,
+                                                    task))
+            ref_batches = {k: r._put(r.sampler.sample_batch(
+                DIST_PRETRAIN_BATCH, task)) for k, r in refs.items()}
+            fa.attention_fwd = capture("attention_fwd", fwd, 6)
+            fa.attention_bwd = capture("attention_bwd", bwd, 9)
+            try:
+                read_reset(counters)
+                loss = float(tr.train_step(task, batch))
+                counts = read_reset(counters)
+            finally:
+                fa.attention_fwd, fa.attention_bwd = fwd, bwd
+            ref_loss = {k: float(r.train_step(task, ref_batches[k]))
+                        for k, r in refs.items()}
+            read_reset(counters)
+            steps[task] = {
+                "loss": loss, "one_process_loss": ref_loss,
+                "grad_rel_l2": _grad_dists(tr.params, {
+                    k: r.params for k, r in refs.items()}),
+                "counts": counts}
+            if prec == "bf16":
+                steps[task]["one_bf16_grad_rel_l2"] = _grad_dists(
+                    refs["bf16"].params, {"fp32": refs["fp32"].params})
+        whole = M.full_state_dict(tr.params)
+        sfx = "" if prec == "bf16" else "_fp32"
+        res["pretrain" + sfx] = steps
+        res["pretrain_param_worst" + sfx] = max(
+            float((whole[n] - t).abs().max())
+            for n, t in refs[prec].params.state_dict().items())
+        res["pretrain_replicated" + sfx] = replicas_equal(mesh, tr.params)
+        del tr, refs, whole
+    # the captured launches, kernels against plain versions
+    if mesh.mp_index == 1:
+        for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+            for name, plain in (("attention_fwd", fa.attention_plain),
+                                ("attention_bwd", fa.attention_bwd_plain)):
+                if (name, dtype) not in captured:
+                    raise AssertionError(f"mp 2: no {dtype} {name} launch "
+                                         f"at head base {head_base} with "
+                                         "dropout captured")
+                a, kw = captured[name, dtype]
+                got = (fwd if name == "attention_fwd" else bwd)(*a, **kw)
+                want = plain(*a, **kw)
+                pairs = [(got, want)] if torch.is_tensor(got) else [
+                    (g, w) for g, w in zip(got, want) if g is not None]
+
+                def tol(w):
+                    return (TOL[dtype] if name == "attention_fwd"
+                            else bwd_tol(w, dtype))
+                res[name + sfx] = {
+                    "shape": list(a[0].shape), "dtype": str(dtype),
+                    "head_base": kw["head_base"],
+                    "heads_total": kw["heads_total"],
+                    "max_abs_err": max(float((g.float() - w.float()).abs()
+                                             .max()) for g, w in pairs),
+                    "tol_share": max(float((g.float() - w.float()).abs()
+                                           .max()) / tol(w)
+                                     for g, w in pairs)}
+        read_reset(counters)
+    # one fine-tune iteration: mp rank 0 rolls out, its peer receives
+    params = AgentParams(cfg)
+    params.load_state_dict(inp["agent"])
+    ft = FinetuneTrainer(cfg, geometric_envs(cfg, DIST_MP_ENVS, seed=0),
+                         params=params, seed=0, device=device, mesh=mesh)
+    seen = []
+    broadcast = ft.mesh.broadcast_mp
+
+    def keep(rec):
+        rec = broadcast(rec)
+        seen.append(rec)
+        return rec
+    ft.mesh.broadcast_mp = keep
+    read_reset(counters)
+    logs = ft.train(1)
+    res["finetune"] = {"loss": logs["IL_loss"],
+                       "counts": read_reset(counters),
+                       "replicated": replicas_equal(mesh, ft.train_planner),
+                       "digest": record_digest(seen[0])}
+    if mesh.mp_index == 0:
+        res["finetune"]["rec"] = seen[0]
+    ft.close()
+    return res
+
+
+def record_digest(rec) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for f in dataclasses.fields(rec):
+        h.update(np.ascontiguousarray(getattr(rec, f.name)).tobytes())
+    return h.hexdigest()
+
+
+def dist_child(rank: int, world: int, address: str, in_path: str,
+               out_dir: str, device: str) -> None:
+    """One rank of phase 14's two-rank gloo world (both ranks on the
+    parent's card, the backend named): (b) then (c)."""
+    from etpnav_tpu_torch.parallel import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M.init_distributed(address, world, rank, device=device, backend="gloo")
+    inp = torch.load(in_path, map_location="cpu", weights_only=False,
+                     mmap=True)
+    counters = dist_counters(device)
+    out = {"dp2": _dist_dp2(M.make_mesh(2, 1), inp, device, counters)}
+    out["mp2"] = _dist_mp2(M.make_mesh(1, 2), inp, device, counters)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    M.barrier()
+    M.shutdown()
+
+
+def check_head_base_bits(card: str, device: str = "cuda") -> dict:
+    """K-ATT's dropout bits at head base 6 of 12, read off the kernel: with
+    q = k = 0 every probability is 1 / Lk, and with v the identity over
+    Lk = hd = 64 keys, out[b, h, q, d] is nonzero iff key d of row q is
+    kept. They must equal the global mask's slice, bit for bit."""
+    from etpnav_tpu_torch.ops import fused_attention as fa
+    B, Hl, Lq, L = 4, 6, 40, 64
+    so = torch.tensor([0x2468ACE013579BDF, 0x0F0F1234], dtype=torch.int64,
+                      device=device)
+    want = fa.dropout_keep_mask(so, B, 2 * Hl, Lq, L, 0.1)[:, HEAD_BASE:]
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.zeros(B, Hl, Lq, 64, dtype=dt, device=device)
+        v = torch.eye(L, dtype=dt, device=device).expand(B, Hl, L, L)
+        out = fa.attention_fwd(q, q[:, :, :1].expand(B, Hl, L, 64)
+                               .contiguous(), v.contiguous(), None, 1.0,
+                               0.1, so, head_base=HEAD_BASE,
+                               heads_total=2 * Hl)
+        got = out > 0
+        plain = fa.dropout_keep_mask(so, B, Hl, Lq, L, 0.1,
+                                     head_base=HEAD_BASE,
+                                     heads_total=2 * Hl)
+        if not (torch.equal(got, want) and torch.equal(plain, want)):
+            raise AssertionError(f"head base {dt}: the kernel's dropout bits "
+                                 "differ from the global mask's slice")
+        res[str(dt).split(".")[-1]] = {"bits": int(want.numel()),
+                                       "kept": int(want.sum())}
+    log(f"14c K-ATT dropout bits at head base {HEAD_BASE} of "
+        f"{2 * Hl}: equal to the global mask's slice {json.dumps(res)} "
+        f"[{card}]")
+    return res
+
+
+def torchrun_train(card: str, yaml_path: str, ckdir: str, device: str,
+                   backend: str) -> dict:
+    """(d) `torchrun --nproc_per_node 2 -m etpnav_tpu_torch.run` with
+    MESH dp 2 and the named backend; the whole process group is killed
+    at DIST_LIMIT_S."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "2", "--master_port", str(free_port()),
+           "-m", "etpnav_tpu_torch.run", "--exp-config", yaml_path,
+           "--device", device, "--num-envs", str(TORCHRUN_ENVS),
+           "--ckpt-dir", ckdir, "MESH.dp=2", f"MESH.backend={backend}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, _ = proc.communicate(timeout=DIST_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"torchrun: still running after {DIST_LIMIT_S}"
+                             " s; killed") from None
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    done = [ln for ln in out.splitlines() if "train done:" in ln]
+    if len(done) != 2:
+        raise AssertionError(f"torchrun: {len(done)} ranks finished:\n"
+                             f"{out[-4000:]}")
+    ckpts = sorted(os.listdir(ckdir))
+    log(f"14d torchrun --nproc_per_node 2 (MESH dp 2, {backend}, "
+        f"{device}): {TORCHRUN_ITERS} iterations in {secs:.1f} s, "
+        f"checkpoints {ckpts}; " + "; ".join(d.split("INFO:")[-1].strip()
+                                             for d in done) + f" [{card}]")
+    return {"seconds": secs, "checkpoints": ckpts}
+
+
+def read_video(path: str) -> dict:
+    """Frames of a written episode video: an mp4 through cv2.VideoCapture,
+    or the PNG directory written where cv2 has no mp4 codec."""
+    import cv2
+    if os.path.isdir(path):
+        frames = [cv2.imread(os.path.join(path, f))
+                  for f in sorted(os.listdir(path))]
+        kind = "png"
+    else:
+        cap = cv2.VideoCapture(path)
+        frames = []
+        ok, f = cap.read()
+        while ok:
+            frames.append(f)
+            ok, f = cap.read()
+        cap.release()
+        kind = "mp4"
+    if not frames or any(f is None or f.ndim != 3 for f in frames):
+        raise AssertionError(f"video {path}: no readable frames")
+    return {"kind": kind, "frames": len(frames),
+            "shape": list(frames[0].shape)}
+
+
+def dist_phase(card: str, cfg, host_params, rec, counters, tmp: str,
+               device: str = "cuda", base: str = "r2r") -> dict:
+    """Phase 14 at r2r_config() width: (b) dp 2 and (c) mp 2 in one
+    two-rank gloo world on this card, against this process's one-process
+    references; the head base read off the kernel; (d) the runner under
+    torchrun, then eval with videos; (a) a one-rank NCCL world. `base`
+    is the YAML preset of (d) (`tiny` to rehearse on the CPU)."""
+    from etpnav_tpu_torch.config_yaml import config_from_dict
+    from etpnav_tpu_torch.models.planner import PlannerParams
+    from etpnav_tpu_torch.parallel import mesh as M
+    from etpnav_tpu_torch.run import run_config
+    from etpnav_tpu_torch.training import finetune as ft
+    from etpnav_tpu_torch.training.pretrain import pretrain_shapes
+    t14 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, planner=dataclasses.replace(
+        cfg.planner, use_bf16=False))
+    shapes = pretrain_shapes(cfg32)
+    in_path = os.path.join(tmp, "in.pt")
+    torch.save({"cfg": cfg32, "cfg_mp": cfg, "agent": host_params.state_dict(),
+                "rec": rec, "shapes": shapes}, in_path)
+    spawn_ranks(dist_child, 2, (in_path, tmp, device), DIST_LIMIT_S,
+                threads=4)
+    world_s = time.perf_counter() - t14
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+
+    def planner0(pcfg=cfg32.planner):
+        p = PlannerParams(pcfg)
+        p.load_state_dict({k[len("planner."):]: v for k, v
+                           in host_params.state_dict().items()
+                           if k.startswith("planner.")})
+        return p.to(device)
+
+    # (b) against one process learning on all 8
+    planner = planner0()
+    opt = ft.make_il_optimizer(cfg32, planner)
+    whole = ft.bucket_record(rec, cfg32.il)
+    loss1 = float(ft.learn_step(planner, opt, cfg32,
+                                ft.record_to_batch(whole, device)))
+    dp = [r["dp2"] for r in ranks]
+    per_step = {"attention_fwd": LEARN_ATTENTIONS,
+                "attention_bwd": LEARN_ATTENTIONS}
+    for r, d in enumerate(dp):
+        if abs(d["loss"] - loss1) > LEARN_REL_TOL * abs(loss1):
+            raise AssertionError(f"dp 2 rank {r}: loss {d['loss']} != one "
+                                 f"process {loss1}")
+        if {k: v for k, v in d["counts"].items() if v} != per_step:
+            raise AssertionError(f"dp 2 rank {r}: launches {d['counts']} "
+                                 f"per step != {per_step}")
+    worst = 0.0
+    for name, p in planner.state_dict().items():
+        err = float((dp[0]["planner"][name].to(device) - p).abs().max())
+        worst = max(worst, err)
+        if err > DIST_PARAM_ATOL:
+            raise AssertionError(f"dp 2: {name} differs from one process "
+                                 f"by {err}")
+    tm = {k: statistics.median(v) for k, v in dp[0]["times_ms"].items()}
+    log(f"14b dp 2 (two gloo ranks sharing one card): global loss "
+        f"{dp[0]['loss']:.6f} vs one process {loss1:.6f}, valid steps per "
+        f"rank {[d['valid'] for d in dp]}, bucket {dp[0]['bucket']}, "
+        f"planner after AdamW worst |diff| {worst:.3g}; launches per rank "
+        f"per step {[d['counts'] for d in dp]} [{card}]")
+    log(f"14b learn-step p50 in turns A B B A ({DIST_TURN_STEPS} steps "
+        f"each, fp32, B 4 per rank): dp 2 {tm['dp2']:.1f} ms (two ranks "
+        f"sharing one card through gloo, not a scaling number), dp 1 "
+        f"{tm['dp1']:.1f} ms (B 8, one process) [{card}]")
+    del planner, opt
+
+    # (c) against one process: the same seeds, so the same dropout draws
+    mp = [r["mp2"] for r in ranks]
+    for r, m in enumerate(mp):
+        for task, got in m["pretrain"].items():
+            check_bf16_step(f"mp 2 rank {r} {task}", got["loss"],
+                            got["one_process_loss"], got["grad_rel_l2"],
+                            got["one_bf16_grad_rel_l2"]["fp32"])
+        for task, got in m["pretrain_fp32"].items():
+            w = got["one_process_loss"]["fp32"]
+            if (abs(got["loss"] - w) > LEARN_REL_TOL * abs(w)
+                    or got["grad_rel_l2"]["fp32"] > LEARN_REL_TOL):
+                raise AssertionError(f"mp 2 rank {r} {task} fp32: loss "
+                                     f"{got['loss']} vs one process {w}, "
+                                     f"gradients {got['grad_rel_l2']} "
+                                     "from one process's (relative L2)")
+        for sfx in ("", "_fp32"):
+            for task, got in m["pretrain" + sfx].items():
+                if {k: v for k, v in got["counts"].items() if v} != \
+                        per_step:
+                    raise AssertionError(f"mp 2 rank {r} {task}{sfx}: "
+                                         f"launches {got['counts']} != "
+                                         f"{per_step}")
+            if m["pretrain_param_worst" + sfx] > DIST_PRETRAIN_ATOL:
+                raise AssertionError(f"mp 2 rank {r}{sfx}: the state "
+                                     "after two steps differs from one "
+                                     "process's by "
+                                     f"{m['pretrain_param_worst' + sfx]}")
+    frec = mp[0]["finetune"]["rec"]
+    if mp[1]["finetune"]["digest"] != record_digest(frec):
+        raise AssertionError("mp 2: the peer learned on another record")
+    floss = {}
+    for name, c in (("bf16", cfg), ("fp32", cfg32)):
+        planner = planner0(c.planner)
+        gen = torch.Generator(device=device).manual_seed(1)
+        floss[name] = float(ft.learn_step(
+            planner, ft.make_il_optimizer(c, planner), c,
+            ft.record_to_batch(ft.bucket_record(frec, c.il), device), gen))
+    for r, m in enumerate(mp):
+        check_bf16_step(f"mp 2 rank {r} fine-tune", m["finetune"]["loss"],
+                        floss)
+        if m["finetune"]["counts"]["attention_bwd"] != LEARN_ATTENTIONS:
+            raise AssertionError(f"mp 2 rank {r} fine-tune: "
+                                 f"{m['finetune']['counts']}")
+    heads = {k: mp[1][k] for k in ("attention_fwd", "attention_bwd",
+                                   "attention_fwd_fp32",
+                                   "attention_bwd_fp32")}
+    for k, h in heads.items():
+        if h["tol_share"] > 1.0:
+            raise AssertionError(f"mp 2 {k} at head base: {h}")
+    pre = [{f"{t}{sfx}": {k: v for k, v in d.items() if k != "counts"}
+            for sfx in ("", "_fp32") for t, d in m["pretrain" + sfx].items()}
+           for m in mp]
+    log(f"14c mp 2 (two gloo ranks sharing one card, vocab "
+        f"{cfg.planner.vocab_size} split in two, dropout on, bf16 planner"
+        f" and fp32): pretrain steps against one process stepping beside "
+        f"each rank {json.dumps(pre)}; state after both steps worst |diff| "
+        f"bf16 {[m['pretrain_param_worst'] for m in mp]}, fp32 "
+        f"{[m['pretrain_param_worst_fp32'] for m in mp]}; fine-tune (bf16) "
+        f"loss {[m['finetune']['loss'] for m in mp]} vs one process on the "
+        f"broadcast record {json.dumps(floss)}; replicated tensors bit-equal on "
+        f"both ranks ({mp[1]['pretrain_replicated']} pretrain bf16, "
+        f"{mp[1]['pretrain_replicated_fp32']} fp32, "
+        f"{mp[1]['finetune']['replicated']} fine-tune); launches per step "
+        f"{[[m['pretrain'][t]['counts'] for t in m['pretrain']] for m in mp]}"
+        f", fine-tune {[m['finetune']['counts'] for m in mp]}; captured at "
+        f"mp rank 1's head base: {json.dumps(heads)} [{card}]")
+    bits = check_head_base_bits(card, device)
+
+    # (d) the runner under torchrun, then eval with videos on one process
+    yaml_path = os.path.join(tmp, "dist.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(f"BASE: {base}\nIL: {{iters: {TORCHRUN_ITERS}, log_every: "
+                f"{TORCHRUN_ITERS}, batch_size: {TORCHRUN_ENVS}}}\n")
+    ckdir = os.path.join(tmp, "ck")
+    tr_res = torchrun_train(card, yaml_path, ckdir, f"{device}:0"
+                            if device == "cuda" else device, "gloo")
+    vdir = os.path.join(tmp, "video")
+    vcfg = config_from_dict({"BASE": base, "VIDEO_DIR": vdir})
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    stats = run_config(vcfg, run_type="eval", video=True, device=device,
+                       ckpt=os.path.join(ckdir, f"ckpt_iter"
+                                         f"{TORCHRUN_ITERS}.pt"),
+                       episode_count=VIDEO_EPISODES,
+                       num_envs=VIDEO_EPISODES)
+    sync()
+    vcounts = {k: c.value for k, c in counters.items() if c.value}
+    vsecs = time.perf_counter() - t0
+    if not (vcounts.get("attention_fwd") and vcounts.get(
+            "heatmap_nms_fused")) or any(k.endswith("plain")
+                                         for k in vcounts):
+        raise AssertionError(f"eval --video: launches {vcounts}")
+    files = sorted(os.listdir(vdir))
+    if len(files) != stats["n_episodes"] or not files:
+        raise AssertionError(f"eval --video: {files} for {stats}")
+    videos = {f: read_video(os.path.join(vdir, f)) for f in files}
+    log(f"14d eval --video ({VIDEO_EPISODES} episodes, one process) in "
+        f"{vsecs:.1f} s: wrote {json.dumps(videos)} "
+        f"({'mp4 through cv2.VideoCapture' if all(v['kind'] == 'mp4' for v in videos.values()) else 'a PNG directory'});"
+        f" launches {vcounts}; SPL {stats['spl']:.4f} [{card}]")
+
+    # (a) a one-rank NCCL world
+    nccl = None
+    if device == "cuda":
+        import torch.distributed as dist
+        M.init_distributed(f"localhost:{free_port()}", 1, 0,
+                           device="cuda:0")
+        try:
+            t = torch.arange(4.0, device="cuda")
+            dist.all_reduce(t)
+            nccl = {"backend": dist.get_backend(),
+                    "all_reduce": t.tolist(),
+                    "sync_max": M.sync_max((3, 5)),
+                    "all_gather_object": M.all_gather_object({"rank": 0})}
+        finally:
+            M.shutdown()
+        if (nccl["backend"] != "nccl" or nccl["sync_max"] != [3, 5]
+                or nccl["all_gather_object"] != [{"rank": 0}]):
+            raise AssertionError(f"nccl one-rank world: {nccl}")
+        log(f"14a one-rank NCCL world on cuda:0: {json.dumps(nccl)} "
+            f"[{card}]")
+    res = {"dp2": {"loss": dp[0]["loss"], "one_process_loss": loss1,
+                   "counts_per_rank_step": [d["counts"] for d in dp],
+                   "p50_ms": tm, "param_worst_abs_diff": worst},
+           "mp2": {"pretrain": [m["pretrain"] for m in mp],
+                   "pretrain_fp32": [m["pretrain_fp32"] for m in mp],
+                   "pretrain_param_worst": [m["pretrain_param_worst"]
+                                            for m in mp],
+                   "pretrain_param_worst_fp32": [
+                       m["pretrain_param_worst_fp32"] for m in mp],
+                   "finetune_loss": [m["finetune"]["loss"] for m in mp],
+                   "finetune_one_process": floss,
+                   "finetune_counts": [m["finetune"]["counts"] for m in mp],
+                   "head_base": heads},
+           "bits": bits, "torchrun": tr_res, "videos": videos,
+           "video_launches": vcounts, "nccl": nccl,
+           "world_s": world_s, "seconds": time.perf_counter() - t14}
+    log(f"phase 14: {json.dumps(res)} [{card}]")
+    return res
+
+
 TC_DESIGN = "tensor cores (mma.sync)"
 
 # launches per call of each served program: K-ATT 16 per perceive (11
@@ -4631,6 +5375,11 @@ def main() -> int:
     drop_rows = check_attention_dropout(card)
     # phase 3c
     bwd_rows = check_attention_bwd(card)
+    # the attention kernels at phase 12's and 13's shapes, measured here:
+    # after phase 11, torch.profiler has handed back no kernel record at
+    # all in some runs
+    dag_rows = check_dagger_attention(card)
+    ext_att = extract_attention_row(card)
     log(f"phase 3c done at {time.perf_counter() - T0:.0f} s")
     nms_rows = check_nms(card)
     gn_calls = trace_gn_calls(cfg, batch=8 * 12)
@@ -4733,7 +5482,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 11 done at {time.perf_counter() - T0:.0f} s")
     # phase 12
-    dag_rows = check_dagger_attention(card)
     with tempfile.TemporaryDirectory(prefix="etpnav_dagger_") as tmp:
         dag = dagger_phase(card, counters, tmp)
     torch.cuda.empty_cache()
@@ -4743,9 +5491,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="etpnav_demo_") as tmp:
         demo = demo_phase(card, counters, tmp)
     ext_rows = extract_phase(card, copy.deepcopy(host_params), counters)
-    ext_att = extract_attention_row(card)
     demo["seconds"] = time.perf_counter() - t13
     log(f"phase 13 done at {time.perf_counter() - T0:.0f} s")
+    # phase 14
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="etpnav_dist_") as tmp:
+        dist = dist_phase(card, cfg, host_params, rec, counters, tmp)
+    log(f"phase 14 done at {time.perf_counter() - T0:.0f} s")
 
     # phase 6
     a = att_rows["clip_natural/bfloat16"]
@@ -4776,6 +5528,16 @@ def main() -> int:
          "launches_demo": demo_l["attention_fwd"],
          "launches_warm_vs_cold": wvc_l["attention_fwd"],
          "launches_extract_per_call": ext_l("attention_fwd"),
+         "launches_dp2_per_rank_step": [
+             c["attention_fwd"] for c in dist["dp2"][
+                 "counts_per_rank_step"]],
+         "launches_mp2_per_rank_step": [
+             {t: m[t]["counts"]["attention_fwd"] for t in m}
+             for m in dist["mp2"]["pretrain"]],
+         "launches_video_eval": dist["video_launches"].get(
+             "attention_fwd", 0),
+         "head_base": {"captured_mp2_rank1": dist["mp2"]["head_base"][
+             "attention_fwd"], "dropout_bits": dist["bits"]},
          "extract_shape": ext_att,
          "source": "etpnav_tpu_torch/csrc/attention.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:211 "
@@ -4795,6 +5557,8 @@ def main() -> int:
          "launches_dagger": dag["launches"].get("heatmap_nms_fused", 0),
          "launches_demo": demo_l["heatmap_nms_fused"],
          "launches_warm_vs_cold": wvc_l["heatmap_nms_fused"],
+         "launches_video_eval": dist["video_launches"].get(
+             "heatmap_nms_fused", 0),
          "source": "etpnav_tpu_torch/csrc/heatmap_nms.cu",
          "replaces": "etpnav_tpu/ops/pallas_nms.py:59 fused_heatmap_nms",
          "launches": res["counts"]["heatmap_nms_fused"],
@@ -4857,6 +5621,14 @@ def main() -> int:
          "dagger_shapes": {k: r["bwd"] for k, r in dag_rows.items()},
          "launches_demo": demo_l["attention_bwd"],
          "launches_warm_vs_cold": wvc_l["attention_bwd"],
+         "launches_dp2_per_rank_step": [
+             c["attention_bwd"] for c in dist["dp2"][
+                 "counts_per_rank_step"]],
+         "launches_mp2_per_rank_step": [
+             {t: m[t]["counts"]["attention_bwd"] for t in m}
+             for m in dist["mp2"]["pretrain"]],
+         "head_base": {"captured_mp2_rank1": dist["mp2"]["head_base"][
+             "attention_bwd"]},
          "source": "etpnav_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "etpnav_tpu/ops/pallas_attention.py:377 "
                      "fused_bias_attention custom VJP (_fused_bwd :382)",
@@ -4983,6 +5755,16 @@ def main() -> int:
                     for k, r in ev_ex.items())
         + f", peak {max(r['peak_gib'] for r in ev_ex.values()):.2f} GiB; "
         f"phase 13 {demo['seconds']:.0f} s [{card}]")
+    log(f"distribution: dp 2 learn-step p50 {dist['dp2']['p50_ms']['dp2']:.1f}"
+        f" ms against dp 1 {dist['dp2']['p50_ms']['dp1']:.1f} ms (two gloo "
+        f"ranks sharing one card, not a scaling number); mp 2 pretrain and "
+        f"fine-tune losses equal one process's; videos "
+        f"{sorted(v['kind'] for v in dist['videos'].values())}; phase 14 "
+        f"{dist['seconds']:.0f} s; total {time.perf_counter() - T0:.0f} s "
+        f"[{card}]")
+    log(f"profiler: µs from a kernel_ms window's first host op to its first "
+        f"kernel, least and largest, by slice of the run "
+        f"{json.dumps(skew_summary())}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

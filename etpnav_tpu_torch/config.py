@@ -6,8 +6,8 @@ both packages, with one recorded difference: `IL.remat_nav` defaults to
 False here (ROADMAP §3). Switches that only the JAX package can act on
 (the `jax.checkpoint` policy `remat_policy`, the bf16 attention-probs
 chain `attn_probs_bf16`, the dropout PRNG choices
-`rng_impl`/`dropout_bits8`) and the sections of the DAgger and
-device-mesh tooling are not here (`config_yaml.py` refuses them).
+`rng_impl`/`dropout_bits8`) are not here (`config_yaml.py` refuses
+them). `MeshConfig.backend` is the port's own field.
 Several comments below record measurements taken on a TPU for the JAX
 package; they explain the defaults there and say nothing about the
 port's speed on a GPU.
@@ -323,6 +323,18 @@ class DataPathsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process layout. dp = data parallel, mp = model (tensor) parallel,
+    one process per device (`parallel/mesh.py`). `backend` is the
+    torch.distributed backend, a field of the port only: "" picks nccl
+    for CUDA devices and gloo for the CPU."""
+
+    dp: int = -1                 # -1: world // mp
+    mp: int = 1
+    backend: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     task_type: str = "r2r"       # or 'rxr'
     planner: PlannerConfig = PlannerConfig()
@@ -336,6 +348,7 @@ class ExperimentConfig:
     eval: EvalConfig = EvalConfig()
     inference: InferenceConfig = InferenceConfig()
     paths: DataPathsConfig = DataPathsConfig()
+    mesh: MeshConfig = MeshConfig()
     seed: int = 0
     # MODEL.pretrained_path: the planner to start fine-tuning from, a
     # pretrain checkpoint of the port (`training/warm_start.py`) or a

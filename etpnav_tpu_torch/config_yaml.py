@@ -12,9 +12,9 @@ A TPU-only key of a ported section (IL.rng_impl, PLANNER.remat_policy,
 ...) is not a field here and raises KeyError like any unknown key, with
 a message that says it is TPU-only.
 
-A section of the JAX package's config that the port does not have yet
-(MESH) raises NotImplementedError naming the ROADMAP item that ports
-it; an unknown section or key raises KeyError. Nothing is dropped silently. PyYAML is imported only by the functions that
+MESH takes the JAX package's dp and mp and the port's own `backend`
+(`parallel/mesh.py`). An unknown section or key raises KeyError. Nothing
+is dropped silently. PyYAML is imported only by the functions that
 parse YAML, so `config_from_dict` and the runner's `run_config` need no
 PyYAML.
 """
@@ -38,12 +38,7 @@ _SECTION_FIELDS = {
     "EVAL": "eval",
     "INFERENCE": "inference",
     "PATHS": "paths",
-}
-
-# sections of the JAX package's config that are not ported yet, with the
-# ROADMAP item that ports each
-_NOT_PORTED = {
-    "MESH": "ROADMAP §1, \"Distribution\"",
+    "MESH": "mesh",
 }
 
 # keys of the JAX package's config that act on the TPU program only
@@ -90,10 +85,6 @@ def config_from_dict(d: Dict[str, Any]) -> C.ExperimentConfig:
     for key, value in d.items():
         if key == "BASE":
             continue
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"config section {key!r} is not ported to etpnav_tpu_torch "
-                f"yet: {_NOT_PORTED[key]}")
         if key in _SECTION_FIELDS:
             field = _SECTION_FIELDS[key]
             cfg = dataclasses.replace(cfg, **{

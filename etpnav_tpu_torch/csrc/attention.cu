@@ -140,8 +140,8 @@ attention_fwd_f32_kernel(const float* __restrict__ q,
                          long long sbb, long long sbq, long long sbk,
                          float scale,
                          const long long* __restrict__ seed_offset,
-                         uint32_t threshold, float inv_keep,
-                         float* __restrict__ lse) {
+                         uint32_t threshold, float inv_keep, int heads_total,
+                         int head_base, float* __restrict__ lse) {
   constexpr int kDimsPerLane = HD / 32;
   __shared__ float qs[kRowsPerBlock][HD];
   __shared__ float ks[kTileK][HD + 1];     // +1: lane j reads row j
@@ -157,7 +157,9 @@ attention_fwd_f32_kernel(const float* __restrict__ q,
   const float* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + b * sbb : nullptr;
   etp::DropoutParams dp{};
-  if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
+  if constexpr (DROP)
+    dp = etp::load_dropout(seed_offset, threshold, inv_keep, H, heads_total,
+                           head_base);
 
   for (int i = threadIdx.x; i < kRowsPerBlock * HD; i += blockDim.x) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
@@ -272,8 +274,8 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         Strides sk, Strides sv, Strides so, long long sbb,
                         long long sbq, long long sbk, float scale,
                         const long long* __restrict__ seed_offset,
-                        uint32_t threshold, float inv_keep,
-                        float* __restrict__ lse) {
+                        uint32_t threshold, float inv_keep, int heads_total,
+                        int head_base, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nthreads = blockDim.x;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // [16 warps][pitch]
@@ -290,7 +292,9 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + b * sbb : nullptr;
   etp::DropoutParams dp{};
-  if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
+  if constexpr (DROP)
+    dp = etp::load_dropout(seed_offset, threshold, inv_keep, H, heads_total,
+                           head_base);
   [[maybe_unused]] const float scale_bf16 = round_bf16(scale);
 
   // the block's q rows (16 per warp; rows past Lq are zeros)
@@ -499,7 +503,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* bias,
               Strides sk, Strides sv, Strides so, long long sbb,
               long long sbq, long long sbk, float scale,
               const long long* seed_offset, uint32_t threshold,
-              float inv_keep, float* lse, cudaStream_t stream) {
+              float inv_keep, int heads_total, int head_base, float* lse,
+              cudaStream_t stream) {
   if (!etp::rows16(q, sq, B, H, Lq) || !etp::rows16(k, sk, B, H, Lk) ||
       !etp::rows16(v, sv, B, H, Lk) || !etp::rows16(out, so, B, H, Lq))
     return etp::kErrMisaligned;
@@ -517,7 +522,7 @@ int launch_tc(const void* q, const void* k, const void* v, const float* bias,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), H, Lq, Lk,
       chunk, sq, sk, sv, so, sbb, sbq, sbk, scale, seed_offset, threshold,
-      inv_keep, lse);
+      inv_keep, heads_total, head_base, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,7 +533,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no bias).
 // seed_offset: null (no dropout) or device int64[2] {seed, offset}; a
 // probability is kept iff its Philox word is below `threshold`, and then
-// scaled by inv_keep. lse: null, or a contiguous fp32 (B, H, Lq) output.
+// scaled by inv_keep. heads_total, head_base: the layer's heads and the
+// first of them these H are (H and 0 unless the heads are split over
+// ranks; philox.cuh). lse: null, or a contiguous fp32 (B, H, Lq) output.
 // Returns cudaGetLastError() after the launch, -1 for a head dim or
 // dtype the kernel does not take (hd = 64, the width of every
 // configuration's heads, is the one built), or etp::kErrMisaligned for a
@@ -541,8 +548,8 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
                       long long svl, long long sob, long long soh,
                       long long sol, long long sbb, long long sbq,
                       long long sbk, float scale, const void* seed_offset,
-                      unsigned threshold, float inv_keep, void* lse,
-                      void* stream) {
+                      unsigned threshold, float inv_keep, int heads_total,
+                      int head_base, void* lse, void* stream) {
   const Strides sq{sqb, sqh, sql}, sk{skb, skh, skl}, sv{svb, svh, svl},
       so{sob, soh, sol};
   const float* bp = static_cast<const float*>(bias);
@@ -553,10 +560,11 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return sp ? launch_tc<true, false>(q, k, v, bp, out, B, H, Lq, Lk, sq,
                                        sk, sv, so, sbb, sbq, sbk, scale, sp,
-                                       threshold, inv_keep, lp, st)
+                                       threshold, inv_keep, heads_total,
+                                       head_base, lp, st)
               : launch_tc<false, false>(q, k, v, bp, out, B, H, Lq, Lk, sq,
                                         sk, sv, so, sbb, sbq, sbk, scale,
-                                        nullptr, 0u, 1.f, lp, st);
+                                        nullptr, 0u, 1.f, H, 0, lp, st);
   if (dtype != 0) return -1;
   const dim3 grid(B * H, (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
   const float* qf = static_cast<const float*>(q);
@@ -566,11 +574,11 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
   if (sp)
     attention_fwd_f32_kernel<64, true><<<grid, kWarps * 32, 0, st>>>(
         qf, kf, vf, bp, of, H, Lq, Lk, sq, sk, sv, so, sbb, sbq, sbk, scale,
-        sp, threshold, inv_keep, lp);
+        sp, threshold, inv_keep, heads_total, head_base, lp);
   else
     attention_fwd_f32_kernel<64, false><<<grid, kWarps * 32, 0, st>>>(
         qf, kf, vf, bp, of, H, Lq, Lk, sq, sk, sv, so, sbb, sbq, sbk, scale,
-        nullptr, 0u, 1.f, lp);
+        nullptr, 0u, 1.f, H, 0, lp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,7 +597,7 @@ int etp_attention_cheap(const void* q, const void* k, const void* v,
   return launch_tc<false, true>(
       q, k, v, nullptr, out, B, H, Lq, Lk, Strides{sqb, sqh, sql},
       Strides{skb, skh, skl}, Strides{svb, svh, svl}, Strides{sob, soh, sol},
-      0, 0, 0, scale, nullptr, 0u, 1.f, nullptr,
+      0, 0, 0, scale, nullptr, 0u, 1.f, H, 0, nullptr,
       static_cast<cudaStream_t>(stream));
 }
 

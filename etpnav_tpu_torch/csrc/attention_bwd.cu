@@ -157,7 +157,8 @@ attention_bwd_f32_kernel(const float* __restrict__ q,
                          Strides sv, Strides so, Strides sdo, long long sbb,
                          long long sbq, long long sbk, float scale,
                          const long long* __restrict__ seed_offset,
-                         uint32_t threshold, float inv_keep) {
+                         uint32_t threshold, float inv_keep,
+                         int heads_total, int head_base) {
   extern __shared__ float smem[];
   const int lk_pad = (Lk + kTileK - 1) / kTileK * kTileK;
   float* dks = smem;                                   // [lk_pad][HD]
@@ -177,7 +178,9 @@ attention_bwd_f32_kernel(const float* __restrict__ q,
   const int warp = t / 32;
   const int lane = t % 32;
   etp::DropoutParams dp{};
-  if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
+  if constexpr (DROP)
+    dp = etp::load_dropout(seed_offset, threshold, inv_keep, H, heads_total,
+                           head_base);
   if (dbs)
     for (int i = t; i < Lq * Lk; i += kThreads) dbs[i] = 0.f;
 
@@ -356,7 +359,8 @@ attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         Strides sv, Strides so, Strides sdo, long long sbb,
                         long long sbq, long long sbk, float scale,
                         const long long* __restrict__ seed_offset,
-                        uint32_t threshold, float inv_keep) {
+                        uint32_t threshold, float inv_keep,
+                         int heads_total, int head_base) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nw = blockDim.x / 32;
   const int rows = 16 * nw;                            // query rows / chunk
@@ -376,7 +380,9 @@ attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / 4, tig = lane % 4;
   etp::DropoutParams dp{};
-  if constexpr (DROP) dp = etp::load_dropout(seed_offset, threshold, inv_keep);
+  if constexpr (DROP)
+    dp = etp::load_dropout(seed_offset, threshold, inv_keep, H, heads_total,
+                           head_base);
   if (dbs)
     for (int i = threadIdx.x; i < Lq * Lk; i += blockDim.x) dbs[i] = 0.f;
 
@@ -667,7 +673,7 @@ int etp_attention_bwd_max_lk(int dtype, int lq, int bias_grad) {
 // dtype: 0 = float32, 1 = bfloat16. bias may be null; dbias (fp32
 // (B, Lq, Lk)) is null unless d(bias) is asked. seed_offset: null (no
 // dropout) or the forward's device int64[2] {seed, offset}, with its
-// threshold and inv_keep. lse: the forward's contiguous fp32 (B, H, Lq).
+// threshold, inv_keep, heads_total and head_base. lse: the forward's contiguous fp32 (B, H, Lq).
 // Returns the CUDA error of the launch, -1 for a head dim, dtype or Lk
 // the kernel does not take, or etp::kErrMisaligned for a bf16 q, k, v, o
 // or dout without 16-byte rows (etp::rows16).
@@ -677,7 +683,8 @@ int etp_attention_bwd(const void* q, const void* k, const void* v,
                       void* dbias, int dtype, int B, int H, int Lq, int Lk,
                       int hd, const long long* st, float scale,
                       const void* seed_offset, unsigned threshold,
-                      float inv_keep, void* stream) {
+                      float inv_keep, int heads_total, int head_base,
+                      void* stream) {
   // st: the element strides (b, h, l) of q, k, v, o, dout, dq, dk, dv,
   // then the bias's (b, q, k): 27 values
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
@@ -711,7 +718,7 @@ int etp_attention_bwd(const void* q, const void* k, const void* v,
                   static_cast<const float*>(o),
                   static_cast<const float*>(dout), lp, g, H, hpb, Lq, Lk, sq,
                   sk, sv, so, sdo, st[24], st[25], st[26], scale, sp,
-                  threshold, inv_keep);
+                  threshold, inv_keep, heads_total, head_base);
   }
   if (!etp::rows16(q, sq, B, H, Lq) || !etp::rows16(k, sk, B, H, Lk) ||
       !etp::rows16(v, sv, B, H, Lk) || !etp::rows16(o, so, B, H, Lq) ||
@@ -727,7 +734,7 @@ int etp_attention_bwd(const void* q, const void* k, const void* v,
                 static_cast<const bf16*>(v), bp, static_cast<const bf16*>(o),
                 static_cast<const bf16*>(dout), lp, g, H, hpb, Lq, Lk, sq, sk,
                 sv, so, sdo, st[24], st[25], st[26], scale, sp, threshold,
-                inv_keep);
+                inv_keep, heads_total, head_base);
 }
 
 }  // extern "C"

@@ -46,16 +46,29 @@ __device__ __forceinline__ uint4 philox4(uint32_t c0, uint32_t c1,
 
 // The element is kept iff its word is below `threshold` =
 // floor(keep * 2^32).
+// heads: the launch's H; heads_total and head_base: the heads of the
+// whole layer and the first of them this launch holds. A tensor-parallel
+// rank's head h of sample b then draws at counter word b * heads_total +
+// head_base + h, the word of that head in the layer's one global mask;
+// one process launches with (H, 0), where the word is b * H + h.
 struct DropoutParams {
   uint32_t seed_lo, seed_hi, offset, threshold;
   float inv_keep;
+  uint32_t heads, heads_total, head_base;
 };
+
+// The counter word of the launch's (b * H + h).
+__device__ __forceinline__ uint32_t global_bh(const DropoutParams& p,
+                                              uint32_t bh) {
+  return bh / p.heads * p.heads_total + p.head_base + bh % p.heads;
+}
 
 // The dropout draw of one attention probability (b * H + h, q, k).
 __device__ __forceinline__ bool dropout_keep(const DropoutParams& p,
                                              uint32_t bh, uint32_t q,
                                              uint32_t k) {
-  const uint4 w = philox4(k >> 2, q, bh, p.offset, p.seed_lo, p.seed_hi);
+  const uint4 w = philox4(k >> 2, q, global_bh(p, bh), p.offset, p.seed_lo,
+                          p.seed_hi);
   const uint32_t x = (k & 2) ? ((k & 1) ? w.w : w.z) : ((k & 1) ? w.y : w.x);
   return x < p.threshold;
 }
@@ -73,8 +86,8 @@ __device__ __forceinline__ void dropout_keep_tile(const DropoutParams& p,
                                                   uint32_t key0, int tig,
                                                   bool* keep) {
   const bool odd = tig & 1;
-  const uint4 w = philox4((key0 >> 2) + (tig >> 1), row0 + (odd ? 8 : 0), bh,
-                          p.offset, p.seed_lo, p.seed_hi);
+  const uint4 w = philox4((key0 >> 2) + (tig >> 1), row0 + (odd ? 8 : 0),
+                          global_bh(p, bh), p.offset, p.seed_lo, p.seed_hi);
   // even lanes keep words 0, 1 of their row and send 2, 3; odd lanes the
   // reverse
   const uint32_t ra = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
@@ -88,13 +101,18 @@ __device__ __forceinline__ void dropout_keep_tile(const DropoutParams& p,
 // seed_offset: device int64[2] = {seed, offset}, drawn by the wrapper
 // from the caller's torch.Generator, so no value crosses to the host.
 __device__ __forceinline__ DropoutParams load_dropout(
-    const long long* seed_offset, uint32_t threshold, float inv_keep) {
+    const long long* seed_offset, uint32_t threshold, float inv_keep,
+    int heads, int heads_total, int head_base) {
   const unsigned long long s =
       static_cast<unsigned long long>(seed_offset[0]);
   return DropoutParams{static_cast<uint32_t>(s),
                        static_cast<uint32_t>(s >> 32),
-                       static_cast<uint32_t>(seed_offset[1]), threshold,
-                       inv_keep};
+                       static_cast<uint32_t>(seed_offset[1]),
+                       threshold,
+                       inv_keep,
+                       static_cast<uint32_t>(heads),
+                       static_cast<uint32_t>(heads_total),
+                       static_cast<uint32_t>(head_base)};
 }
 
 }  // namespace etp

@@ -21,6 +21,7 @@ from etpnav_tpu_torch.ops.attention import (
     self_attention_block,
 )
 from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, dropout, gelu_erf
+from etpnav_tpu_torch.parallel import tensor_parallel
 
 
 class BertDims(NamedTuple):
@@ -56,7 +57,7 @@ def bert_embeddings(params: BertEmbeddings, input_ids: torch.Tensor,
     """word + position + type embeddings, LN, dropout. Positions are plain
     arange(L), as in the reference (also for the XLM-R variant)."""
     L = input_ids.shape[1]
-    x = params.word_embeddings[input_ids]
+    x = tensor_parallel.embedding(params.word_embeddings, input_ids)
     x = x + params.position_embeddings[:L][None]
     if token_type_ids is None:
         x = x + params.token_type_embeddings[0]
@@ -156,7 +157,8 @@ def prenorm_layer(params: PrenormLayer, x: torch.Tensor,
             attn_dropout=dims.attn_dropout, generator=generator, train=train)
     x = x + dropout(h, p, generator, train)
     h = params.norm2(x, dims.eps)
-    h = dropout(gelu_erf(params.linear1(h)), p, generator, train)
+    h = dropout(gelu_erf(params.linear1(h)), p, generator, train,
+                shard=tensor_parallel.dropout_shard(params.linear1))
     return x + dropout(params.linear2(h), p, generator, train)
 
 

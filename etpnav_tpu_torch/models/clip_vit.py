@@ -40,6 +40,7 @@ from etpnav_tpu_torch.ops.basic import (
     quick_gelu,
 )
 from etpnav_tpu_torch.ops.fused_prenorm import prenorm_attention
+from etpnav_tpu_torch.parallel import tensor_parallel
 
 # CLIP preprocessing constants (resnet_encoders.py:264-267)
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -112,7 +113,10 @@ def _trunk(params: ClipParams, cfg: ClipConfig, x: torch.Tensor,
     x = params.ln_pre(x, eps)
     for bp in params.blocks[:-1]:
         if cfg.use_fused_block:
-            x = prenorm_attention(x, bp.ln_1, bp.attn, cfg.heads, eps)
+            # K-PRENORM takes whole weights: split ones are gathered and
+            # the block runs replicated (XLA's way with a custom call)
+            x = prenorm_attention(x, bp.ln_1, tensor_parallel.gathered(
+                bp.attn), cfg.heads, eps)
         else:
             a = bp.ln_1(x, eps)
             x = x + mha(bp.attn, a, a, cfg.heads)

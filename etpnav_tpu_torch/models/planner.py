@@ -52,6 +52,7 @@ from etpnav_tpu_torch.ops.basic import (
     mask_to_bias,
     matmul_f32,
 )
+from etpnav_tpu_torch.parallel import tensor_parallel
 
 # the SAP head's dropout (vilmodel_cmt.py NextActionPrediction)
 SAP_DROPOUT = 0.1
@@ -361,9 +362,11 @@ def mlm_head(params: MLMHead, word_embeddings: torch.Tensor,
     (pretrain_cmt.py:80-83): the table cast to x's dtype, the product
     accumulated in fp32 and rounded once (`matmul_f32`), plus the fp32
     bias. The gradient reaches the word embeddings through this product
-    and through their lookup."""
+    and through their lookup. With the table split over a tensor-parallel
+    group, the logits are this rank's vocabulary slice
+    (`tensor_parallel.vocab_nll` takes them)."""
     h = gelu_erf(params.transform(x))
-    h = params.ln(h, eps)
+    h = tensor_parallel.vocab_input(params.ln(h, eps), word_embeddings)
     logits = matmul_f32(h, word_embeddings.t().to(h.dtype))
     return logits + params.bias
 

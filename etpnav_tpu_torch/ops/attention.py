@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from etpnav_tpu_torch.ops.basic import LayerNorm, Linear, dropout
 from etpnav_tpu_torch.ops.fused_attention import attention
+from etpnav_tpu_torch.parallel.tensor_parallel import bias_to_mp, heads_of
 
 
 class QKV(nn.Module):
@@ -51,16 +52,21 @@ def mha(params: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor,
     """q_in (B, Lq, D), kv_in (B, Lk, Dc), bias broadcastable to
     (B, 1, Lq, Lk) -> (B, Lq, D) after the output projection (`o`, or
     `params.o`). With `train` and a generator, the attention
-    probabilities are dropped at `attn_dropout` inside the kernel."""
+    probabilities are dropped at `attn_dropout` inside the kernel. Under
+    tensor parallelism (`parallel/tensor_parallel.py`) the projections
+    hold this rank's heads, whose dropout draws are those heads' of the
+    layer's one mask, and `o` sums the ranks' partial products."""
     B, Lq, D = q_in.shape
-    H = num_heads
-    hd = D // H
+    hd = D // num_heads
+    H, head_base, heads_total = heads_of(params.q, num_heads, hd)
+    bias = bias_to_mp(bias, params.q)
     q = params.q(q_in).view(B, Lq, H, hd).transpose(1, 2)
     k = params.k(kv_in).view(B, -1, H, hd).transpose(1, 2)
     v = params.v(kv_in).view(B, -1, H, hd).transpose(1, 2)
     ctx = attention(q, k, v, bias, 1.0 / math.sqrt(hd),
-                    attn_dropout if train else 0.0, generator)
-    ctx = ctx.transpose(1, 2).reshape(B, Lq, D)
+                    attn_dropout if train else 0.0, generator,
+                    head_base=head_base, heads_total=heads_total)
+    ctx = ctx.transpose(1, 2).reshape(B, Lq, H * hd)
     return (o if o is not None else params.o)(ctx)
 
 

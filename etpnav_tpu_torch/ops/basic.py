@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -130,14 +130,27 @@ def mask_to_bias(mask: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator], train: bool
-            ) -> torch.Tensor:
+            generator: Optional[torch.Generator], train: bool,
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout with the caller's generator (on x's device); the
-    identity when not training, at rate 0 or without a generator."""
+    identity when not training, at rate 0 or without a generator. For an
+    activation split on its last dim over a tensor-parallel group,
+    `shard` = (first column, full width): the mask is drawn at the full
+    width and this slice of it kept, so the ranks of the group drop
+    what one process would (`parallel/tensor_parallel.py`)."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    if shard is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        start, full = shard
+        n = x.shape[-1]
+        u = torch.rand(*x.shape[:-1], full, generator=generator,
+                       device=x.device)[..., start:start + n]
+        if u.shape[-1] < n:          # the zero padding of the last shard
+            u = torch.cat([u, u.new_ones(*x.shape[:-1],
+                                         n - u.shape[-1])], -1)
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
@@ -187,6 +200,11 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if getattr(self.weight, "tp", None) is not None:
+            # split over a tensor-parallel group (parallel/mesh.py)
+            from etpnav_tpu_torch.parallel.tensor_parallel import \
+                parallel_linear
+            return parallel_linear(x, self.weight, self.bias)
         return linear(x, self.weight, self.bias)
 
     def init_(self, generator: torch.Generator) -> None:

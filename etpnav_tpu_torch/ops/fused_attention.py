@@ -39,7 +39,10 @@ of each logical (b, h, q, k) drawn by Philox4x32-10 from a device int64
 pair {seed, offset} (`draw_seed_offset`, from the caller's
 torch.Generator). `dropout_keep_mask` computes the kernels' bits with
 int64 tensor arithmetic, so the plain versions drop exactly what the
-kernels drop.
+kernels drop. Under tensor parallelism a rank holds heads `head_base ..
+head_base + H - 1` of a layer's `heads_total`, and every function here
+that drops takes the two: its mask is then that slice of the layer's one
+global mask (the defaults, 0 and H, give the one-process mask).
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     lib.etp_attention_fwd.argtypes = (
         [vp] * 5 + [i32] * 6 + [i64] * 15
-        + [ctypes.c_float, vp, ctypes.c_uint, ctypes.c_float, vp, vp])
+        + [ctypes.c_float, vp, ctypes.c_uint, ctypes.c_float, i32, i32, vp,
+           vp])
     lib.etp_attention_fwd.restype = ctypes.c_int
     lib.etp_attention_cheap.argtypes = (
         [vp] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, vp])
@@ -87,7 +91,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.etp_attention_bwd.argtypes = (
         [vp] * 11 + [i32] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp,
-           ctypes.c_uint, ctypes.c_float, vp])
+           ctypes.c_uint, ctypes.c_float, i32, i32, vp])
     lib.etp_attention_bwd.restype = ctypes.c_int
     lib.etp_attention_bwd_max_lk.argtypes = [i32] * 3
     lib.etp_attention_bwd_max_lk.restype = ctypes.c_int
@@ -110,6 +114,16 @@ def _bias_3d(bias: torch.Tensor, B: int, Lq: int, Lk: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # dropout bits
 # ---------------------------------------------------------------------------
+
+def _check_heads(H: int, head_base: int, heads_total: Optional[int]) -> int:
+    """heads_total (H when None), checked to hold heads head_base ..
+    head_base + H - 1."""
+    heads_total = H if heads_total is None else int(heads_total)
+    if not 0 <= head_base <= heads_total - H:
+        raise ValueError(f"heads {head_base}..{head_base + H - 1} outside "
+                         f"the layer's {heads_total}")
+    return heads_total
+
 
 def draw_seed_offset(generator: torch.Generator,
                      device: torch.device) -> torch.Tensor:
@@ -141,18 +155,23 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dropout_keep_mask(seed_offset: torch.Tensor, B: int, H: int, Lq: int,
                       Lk: int, p_drop: float,
-                      device: Optional[torch.device] = None) -> torch.Tensor:
+                      device: Optional[torch.device] = None,
+                      head_base: int = 0,
+                      heads_total: Optional[int] = None) -> torch.Tensor:
     """The kernels' keep bits, (B, H, Lq, Lk) bool: element (b, h, q, k)
-    is kept iff word k % 4 of Philox4x32-10 at counter (k // 4, q, b*H+h,
-    offset) under key (seed low, seed high) is below floor(keep * 2^32)
-    (one call draws four consecutive keys)."""
+    is kept iff word k % 4 of Philox4x32-10 at counter (k // 4, q,
+    b * heads_total + head_base + h, offset) under key (seed low, seed
+    high) is below floor(keep * 2^32) (one call draws four consecutive
+    keys). heads_total defaults to H."""
+    heads_total = _check_heads(H, head_base, heads_total)
     device = seed_offset.device if device is None else device
     so = seed_offset.to(device=device, dtype=torch.int64)
     k0, k1 = so[0] & _MASK32, (so[0] >> 32) & _MASK32
     word = torch.arange(Lk, device=device).view(1, 1, 1, Lk) % 4
     c0 = torch.arange(Lk, device=device).view(1, 1, 1, Lk) // 4
     c1 = torch.arange(Lq, device=device).view(1, 1, Lq, 1)
-    c2 = torch.arange(B * H, device=device).view(B, H, 1, 1)
+    c2 = (torch.arange(B, device=device).view(B, 1, 1, 1) * heads_total
+          + head_base + torch.arange(H, device=device).view(1, H, 1, 1))
     c3 = so[1] & _MASK32
     for i in range(10):
         if i:
@@ -189,7 +208,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], scale: float,
                     p_drop: float = 0.0,
                     seed_offset: Optional[torch.Tensor] = None,
-                    return_lse: bool = False, out_layout: str = "natural"):
+                    return_lse: bool = False, out_layout: str = "natural",
+                    head_base: int = 0, heads_total: Optional[int] = None):
     """The plain PyTorch version of K-ATT, with the kernel's numerics:
     fp32 logits, max and sum; unnormalised p rounded to the input dtype
     before p.v (fp32 accumulation), a dropped p zeroed and a kept one
@@ -200,7 +220,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_layout(out_layout)
     attention_plain_calls.add()
     res = softmax_attention(q, k, v, bias, scale, p_drop, seed_offset,
-                            return_lse)
+                            return_lse, head_base, heads_total)
     if out_layout == "natural":
         return res
     out = (res[0] if return_lse else res).contiguous()
@@ -211,7 +231,8 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: Optional[torch.Tensor], scale: float,
                       p_drop: float = 0.0,
                       seed_offset: Optional[torch.Tensor] = None,
-                      return_lse: bool = False):
+                      return_lse: bool = False, head_base: int = 0,
+                      heads_total: Optional[int] = None):
     """`attention_plain`'s arithmetic, uncounted, for the plain versions
     of other kernels that attend the same way."""
     B, H, Lq, _ = q.shape
@@ -225,7 +246,8 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pr = p.to(q.dtype).float()
     if seed_offset is not None:
         _, inv_keep = _threshold(p_drop)
-        keep = dropout_keep_mask(seed_offset, B, H, Lq, Lk, p_drop, q.device)
+        keep = dropout_keep_mask(seed_offset, B, H, Lq, Lk, p_drop, q.device,
+                                 head_base, heads_total)
         pr = torch.where(keep, pr * inv_keep, 0.0)
     ctx = torch.einsum("bhqk,bhkd->bhqd", pr, v.float())
     out = (ctx / denom).to(q.dtype)
@@ -246,7 +268,8 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, scale: float,
                         p_drop: float = 0.0,
                         seed_offset: Optional[torch.Tensor] = None,
-                        bias_grad: bool = False):
+                        bias_grad: bool = False, head_base: int = 0,
+                        heads_total: Optional[int] = None):
     """The plain PyTorch version of K-ATT-BWD, with the kernel's numerics:
     P rebuilt in fp32 from the logits and the forward's lse, every sum in
     fp32. In bf16 the kernel's tensor cores take P o Z (through the
@@ -266,7 +289,8 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     z = 1.0
     if seed_offset is not None:
         _, inv_keep = _threshold(p_drop)
-        keep = dropout_keep_mask(seed_offset, B, H, Lq, Lk, p_drop, q.device)
+        keep = dropout_keep_mask(seed_offset, B, H, Lq, Lk, p_drop, q.device,
+                                 head_base, heads_total)
         z = torch.where(keep, inv_keep, 0.0)
     row_d = (dof * out.float()).sum(-1, keepdim=True)
     dpd = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
@@ -363,9 +387,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor], scale: float,
                   p_drop: float = 0.0,
                   seed_offset: Optional[torch.Tensor] = None,
-                  return_lse: bool = False, out_layout: str = "natural"):
+                  return_lse: bool = False, out_layout: str = "natural",
+                  head_base: int = 0, heads_total: Optional[int] = None):
     """softmax(q.k^T * scale + bias) . v per head, with attention-prob
-    dropout when `seed_offset` is given. The (B, H, Lq, hd) output lies in
+    dropout when `seed_offset` is given (the heads being `head_base ..` of
+    the layer's `heads_total`). The (B, H, Lq, hd) output lies in
     memory as (B, Lq, H, hd) with `out_layout="natural"`, or contiguous
     with `"head"`. CPU tensors run the plain version; CUDA tensors launch
     the kernel or raise. With `return_lse`, returns (out, fp32 row
@@ -373,9 +399,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_layout(out_layout)
     if not _cuda("attention_fwd", q):
         return attention_plain(q, k, v, bias, scale, p_drop, seed_offset,
-                               return_lse, out_layout)
+                               return_lse, out_layout, head_base,
+                               heads_total)
     _check_qkv("attention_fwd", q, k, v)
     B, H, Lq, hd = q.shape
+    heads_total = _check_heads(H, head_base, heads_total)
     Lk = k.shape[2]
     bias_ptr, sb, _keep_alive = _bias_operand("attention_fwd", bias, q, Lk)
     seed_ptr, threshold, inv_keep = _dropout_operand(
@@ -392,7 +420,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, hd,
             sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
             so[0], so[1], so[2], sb[0], sb[1], sb[2], float(scale),
-            seed_ptr, threshold, inv_keep,
+            seed_ptr, threshold, inv_keep, heads_total, head_base,
             None if lse is None else lse.data_ptr(), stream)
     _check_status(err, "attention_fwd")
     if out_layout == "head":
@@ -464,15 +492,18 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lse: torch.Tensor, dout: torch.Tensor, scale: float,
                   p_drop: float = 0.0,
                   seed_offset: Optional[torch.Tensor] = None,
-                  bias_grad: bool = False):
+                  bias_grad: bool = False, head_base: int = 0,
+                  heads_total: Optional[int] = None):
     """The gradients of `attention_fwd` given dL/d(out): (dq, dk, dv) in
     q's dtype and d(bias) as fp32 (B, Lq, Lk) or None. CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise."""
     if not _cuda("attention_bwd", q):
         return attention_bwd_plain(q, k, v, bias, out, lse, dout, scale,
-                                   p_drop, seed_offset, bias_grad)
+                                   p_drop, seed_offset, bias_grad, head_base,
+                                   heads_total)
     _check_qkv("attention_bwd", q, k, v)
     B, H, Lq, hd = q.shape
+    heads_total = _check_heads(H, head_base, heads_total)
     Lk = k.shape[2]
     lib = cuda_build.load("attention_bwd")
     max_lk = lib.etp_attention_bwd_max_lk(_DTYPES[q.dtype], Lq,
@@ -512,7 +543,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dk.data_ptr(), dv.data_ptr(),
             None if dbias is None else dbias.data_ptr(),
             _DTYPES[q.dtype], B, H, Lq, Lk, hd, st, float(scale), seed_ptr,
-            threshold, inv_keep, stream)
+            threshold, inv_keep, heads_total, head_base, stream)
     _check_status(err, "attention_bwd")
     attention_bwd_launches.add()
     return dq, dk, dv, dbias
@@ -530,11 +561,14 @@ class AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale: float, p_drop: float,
-                seed_offset):
+                seed_offset, head_base: int = 0,
+                heads_total: Optional[int] = None):
         out, lse = attention_fwd(q, k, v, bias, scale, p_drop, seed_offset,
-                                 return_lse=True)
+                                 return_lse=True, head_base=head_base,
+                                 heads_total=heads_total)
         ctx.save_for_backward(q, k, v, bias, out, lse, seed_offset)
         ctx.scale, ctx.p_drop = scale, p_drop
+        ctx.heads = (head_base, heads_total)
         return out
 
     @staticmethod
@@ -545,22 +579,26 @@ class AttentionFn(torch.autograd.Function):
         bias_grad = bias is not None and ctx.needs_input_grad[3]
         dq, dk, dv, dbias = attention_bwd(
             q, k, v, bias, out, lse, dout, ctx.scale, ctx.p_drop,
-            seed_offset, bias_grad)
+            seed_offset, bias_grad, head_base=ctx.heads[0],
+            heads_total=ctx.heads[1])
         if bias_grad:
             if bias.dim() == 4:
                 dbias = dbias[:, None]
             dbias = dbias.sum_to_size(bias.shape).to(bias.dtype)
-        return dq, dk, dv, dbias, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], scale: float,
               p_drop: float = 0.0,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              head_base: int = 0,
+              heads_total: Optional[int] = None) -> torch.Tensor:
     """The attention of every port module, with dropout at `p_drop` when a
     generator is given (one {seed, offset} drawn per call), none
-    otherwise. Where autograd records, it runs `AttentionFn`; elsewhere
-    (serving, the rollout) the forward kernel alone, with no lse."""
+    otherwise; q's heads are `head_base ..` of the layer's `heads_total`.
+    Where autograd records, it runs `AttentionFn`; elsewhere (serving,
+    the rollout) the forward kernel alone, with no lse."""
     seed_offset = None
     if p_drop > 0.0 and generator is not None:
         seed_offset = draw_seed_offset(generator, q.device)
@@ -568,6 +606,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p_drop = 0.0
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias))):
-        return attention_fwd(q, k, v, bias, scale, p_drop, seed_offset)
+        return attention_fwd(q, k, v, bias, scale, p_drop, seed_offset,
+                             head_base=head_base, heads_total=heads_total)
     return AttentionFn.apply(q, k, v, bias, float(scale), p_drop,
-                             seed_offset)
+                             seed_offset, head_base, heads_total)

@@ -18,6 +18,19 @@ network service (serving.py + serving_http.py).
         PRETRAINED_PATH=ckpt/pretrain/model_step_100000.pt
     python -m etpnav_tpu_torch.run --exp-config configs/dagger_r2r.yaml \
         --trainer DAgger --num-envs 8 [DAGGER.policy=cma]
+    python -m etpnav_tpu_torch.run --exp-config configs/r2r.yaml \
+        --run-type eval --video --episode-count 4
+    torchrun --nproc_per_node 4 -m etpnav_tpu_torch.run \
+        --exp-config configs/r2r.yaml MESH.dp=2 MESH.mp=2
+
+With MESH.dp * MESH.mp > 1 (the JAX runner's mesh, run.py:89-94), or
+under a launcher that started more than one process, the runner starts
+torch.distributed from torchrun's (or SLURM's) environment
+(`parallel/mesh.py::init_distributed`, MESH.backend or nccl on CUDA),
+lays the world out as dp x mp (MESH.dp = -1, the default, is world //
+mp) and trains SS-ETP or Pretrain on it; each
+rank's device is cuda:LOCAL_RANK, or the one `--device` names (ranks
+sharing one card need MESH.backend=gloo). Evaluation stays per rank.
 
 Everything runs on the GPU unless `--device cpu` is passed; with no GPU
 and no `--device cpu` the trainer raises. `run(argv)` parses the command
@@ -48,10 +61,8 @@ def hash_split(split: str) -> int:
 
 TRAINER_REGISTRY: Dict[str, Callable] = {}
 
-# trainers and options of the JAX runner that are not ported yet, with the
-# ROADMAP item that ports each
+# inputs of the JAX runner that the port does not read, and why
 NOT_PORTED = {
-    "--video": "ROADMAP §1, \"Legacy and offline\" (eval videos)",
     "pretrained_path directory": "a directory names a JAX (orbax) pretrain "
                                  "checkpoint, which the port does not read; "
                                  "pretrain with `--trainer Pretrain` and "
@@ -85,6 +96,8 @@ def _build_ss_etp(cfg, args):
     from etpnav_tpu_torch.training.finetune import FinetuneTrainer
 
     halves = max(args.pipeline_halves, 1)
+    mesh = getattr(args, "mesh", None)
+    dp_index = 0 if mesh is None else mesh.dp_index
     num_envs = args.num_envs or cfg.num_environments
     if num_envs != cfg.il.batch_size:
         logger.warning("NUM_ENVIRONMENTS %d != IL.batch_size %d: the learn "
@@ -102,6 +115,8 @@ def _build_ss_etp(cfg, args):
              else "train")
     split_seed = cfg.seed + (0 if split == "train"
                              else 10_000 + abs(hash_split(split)) % 10_000)
+    # each dp slot drives envs of its own
+    split_seed += dp_index * halves
     env_kwargs = dict(vocab_size=cfg.planner.vocab_size,
                       max_instr_len=cfg.il.max_text_len,
                       image_size=cfg.clip.image_size,
@@ -114,7 +129,7 @@ def _build_ss_etp(cfg, args):
     def make_pool(i):
         if use_habitat:
             return make_habitat_envs(cfg, num_envs=per_pool, split=split,
-                                     seed=cfg.seed + i)
+                                     seed=cfg.seed + dp_index * halves + i)
         if args.workers:
             from etpnav_tpu_torch.env.vector import construct_geometric_envs
             return construct_geometric_envs(
@@ -130,7 +145,7 @@ def _build_ss_etp(cfg, args):
             pools.append(make_pool(i))
         return FinetuneTrainer(cfg, pools[0] if halves == 1 else pools,
                                ckpt_dir=args.ckpt_dir, seed=cfg.seed,
-                               device=args.device)
+                               device=args.device, mesh=mesh)
     except BaseException:
         for pool in pools:
             if hasattr(pool, "close"):
@@ -282,7 +297,8 @@ def _build_pretrain(cfg, args):
         pretrain_shapes,
     )
     return PretrainTrainer(cfg, pretrain_shapes(cfg), seed=cfg.seed,
-                           device=args.device)
+                           device=args.device,
+                           mesh=getattr(args, "mesh", None))
 
 
 def load_pretrained_path(trainer, path: str) -> None:
@@ -346,7 +362,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--predictions-file", default="",
                     help="defaults to INFERENCE.predictions_file")
     ap.add_argument("--video", action="store_true",
-                    help="eval navigator videos (not ported yet)")
+                    help="write per-episode navigator videos to "
+                         "cfg.video_dir during eval (VIDEO_DIR pipeline)")
     ap.add_argument("--gt-path", default=None,
                     help="{split}_gt.json.gz with reference locations "
                          "(ndtw supervision / eval)")
@@ -388,13 +405,37 @@ def run_config(cfg, args: argparse.Namespace = None, **options):
     if unknown:
         raise TypeError(f"unknown runner options {sorted(unknown)}")
     args = argparse.Namespace(**{**ns, **options})
-    if args.video:
-        raise _not_ported("--video")
 
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
     logging.basicConfig(level=logging.INFO)
 
+    args.mesh = None
+    started = False
+    from etpnav_tpu_torch.parallel import mesh as meshlib
+    if cfg.mesh.dp > 1 or cfg.mesh.mp > 1 or meshlib.launched_world() > 1:
+        if args.run_type == "serve" or args.trainer == "DAgger":
+            raise ValueError(f"MESH dp={cfg.mesh.dp} mp={cfg.mesh.mp} "
+                             f"over {meshlib.launched_world()} launched "
+                             "process(es): serving and the DAgger trainer "
+                             "run on one process")
+        import torch.distributed as dist
+        started = not dist.is_initialized()
+        meshlib.init_distributed(
+            backend=cfg.mesh.backend or None,
+            device=None if args.device == "cuda" else args.device)
+        args.device = meshlib.rank_device(args.device)
+        args.mesh = meshlib.make_mesh(cfg.mesh.dp, cfg.mesh.mp)
+        logger.info("mesh: dp %d x mp %d, rank %d on %s", args.mesh.dp,
+                    args.mesh.mp, args.mesh.rank, args.device)
+    try:
+        return _run_mode(cfg, args)
+    finally:
+        if started:
+            meshlib.shutdown()
+
+
+def _run_mode(cfg, args):
     if args.run_type == "serve":
         if args.trainer != "SS-ETP":
             raise ValueError("serving exposes the SS-ETP policy; "
@@ -512,7 +553,9 @@ def _run_trainer(trainer, cfg, args):
                 episode_count=n, split=cfg.eval.split, gt_paths=gt_paths)
             logger.info("eval loop: %d checkpoints", len(results))
             return results
-        stats = trainer.evaluate(n, gt_paths=gt_paths)
+        stats = trainer.evaluate(
+            n, gt_paths=gt_paths,
+            video_dir=cfg.video_dir if args.video else None)
         logger.info("eval: %s", stats)
         return stats
     n = (args.episode_count if args.episode_count > 0

@@ -7,6 +7,9 @@ A checkpoint is one file holding the state dicts (parameters, optimizer
 state) and the iteration, as the reference's save_checkpoint does
 (ss_trainer_ETP.py:74-83). It is written to a temporary name and renamed,
 so a preempted save never leaves a partial file under a checkpoint name.
+A world of several ranks (`parallel/mesh.py`) keeps this one-process
+format: the trainers gather the split tensors whole, global rank 0 writes
+(`save_from_rank0`) and every rank re-splits what it loads.
 """
 
 from __future__ import annotations
@@ -25,6 +28,15 @@ def save_checkpoint(path: str, state: Any) -> None:
     tmp = f"{path}.tmp-{os.getpid()}"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def save_from_rank0(path: str, state: Any) -> None:
+    """`save_checkpoint` on global rank 0 only (every rank when no
+    process group is active); every rank then waits for the write."""
+    from etpnav_tpu_torch.parallel import mesh as meshlib
+    if meshlib.is_writer():
+        save_checkpoint(path, state)
+    meshlib.barrier()
 
 
 def load_checkpoint(path: str, map_location=None) -> Any:

@@ -14,6 +14,13 @@
   waypoint predictor too). Every attention runs K-ATT forward and
   K-ATT-BWD backward, with its dropout inside the kernels.
 
+With a `parallel/mesh.py` mesh the learn step runs on every rank of a
+dp x mp world: each dp slot rolls out its own envs, the loss is
+normalised by the dp-global count of live steps and the gradients are
+summed over dp; under mp the trained planner is split by the rules, and
+the rollout runs a whole copy of it on mp rank 0, whose record the mp
+peers receive.
+
 bf16 activations where `use_bf16` says so; fp32 parameters and optimizer
 state. Dropout draws come from the trainer's torch.Generator on its
 device; without one (`generator=None`) every dropout is off, which is the
@@ -22,6 +29,7 @@ deterministic replay the parity tests use.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -37,6 +45,8 @@ from etpnav_tpu_torch.device import resolve_device
 from etpnav_tpu_torch.metrics import aggregate
 from etpnav_tpu_torch.models import planner
 from etpnav_tpu_torch.ops.basic import checkpointed, dropout
+from etpnav_tpu_torch.parallel import mesh as meshlib
+from etpnav_tpu_torch.parallel.mesh import Mesh
 from etpnav_tpu_torch.training import checkpoints
 from etpnav_tpu_torch.training.agent import (
     Agent,
@@ -184,11 +194,14 @@ def replay_logits(planner_params: planner.PlannerParams,
 
 def compute_il_loss(planner_params: planner.PlannerParams,
                     cfg: ExperimentConfig, batch: dict,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    total_actions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Replay loss over a recorded rollout interval: cross-entropy of the
     replayed logits against the teacher (-100 ignored), -inf logits taken
-    as -1e9, normalised by the number of valid steps."""
+    as -1e9, normalised by the number of valid steps: the batch's, or
+    `total_actions` (the count over the dp group, so that the ranks'
+    losses sum to the global batch's, as the JAX package takes it)."""
     logits = replay_logits(planner_params, cfg, batch, generator,
                            train=True)
     teacher = batch["teacher"]                        # (B, T), -100 ignore
@@ -197,19 +210,30 @@ def compute_il_loss(planner_params: planner.PlannerParams,
         torch.where(torch.isfinite(logits), logits, -1e9), dim=-1)
     nll = -logp.gather(-1, teacher.clamp_min(0)[..., None])[..., 0]
     loss_sum = torch.where(valid, nll, 0.0).sum()
-    total_actions = batch["step_valid"].sum().clamp_min(1)
-    return cfg.il.ml_weight * loss_sum / total_actions
+    if total_actions is None:
+        total_actions = batch["step_valid"].sum()
+    return cfg.il.ml_weight * loss_sum / total_actions.clamp_min(1)
 
 
 def learn_step(planner_params: planner.PlannerParams,
                optimizer: torch.optim.Optimizer, cfg: ExperimentConfig,
-               batch: dict, generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
+               batch: dict, generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Loss, backward and one AdamW step, in place; returns the detached
-    loss (still on the device: reading it is the caller's sync)."""
+    loss (still on the device: reading it is the caller's sync). With a
+    mesh, `batch` is this rank's share: the loss is normalised by the dp
+    group's count of live steps, the gradients are summed over the group
+    before the step (the unsplit ones then made mp rank 0's), and the
+    returned loss is the global one."""
     optimizer.zero_grad(set_to_none=True)
-    loss = compute_il_loss(planner_params, cfg, batch, generator)
+    total = None
+    if mesh is not None and mesh.dp > 1:
+        total = mesh.dp_sum(batch["step_valid"].sum())
+    loss = compute_il_loss(planner_params, cfg, batch, generator, total)
     loss.backward()
+    if mesh is not None:
+        mesh.sync_grads(list(planner_params.parameters()))
+        loss = mesh.dp_sum(loss)
     optimizer.step()
     return loss.detach()
 
@@ -282,6 +306,9 @@ def bucket_record(rec: RolloutRecord, il) -> RolloutRecord:
     valid_t = rec.step_valid.any(0)
     T_need = int(valid_t.nonzero()[0].max()) + 1 if valid_t.any() else 1
     G_need = int(rec.gmap_mask.sum(-1).max())
+    # several ranks: every rank learns at the bucket of the largest
+    # demand (the task-sync dist.broadcast analogue, loader.py:56-59)
+    T_need, G_need = meshlib.sync_max((T_need, G_need))
     T_b = pick_bucket(T_need, il.train_traj_buckets, T)
     G_b = pick_bucket(G_need, il.train_gmap_buckets, G)
     if (T_b, G_b) == (T, G):
@@ -322,24 +349,43 @@ class FinetuneTrainer:
     `ckpt_dir`. `tb_dir` takes tensorboard scalars (the loss each
     iteration; phase times and the learn buckets every 50). `envs` is one
     env pool, or a list of pools for the pipelined rollout (one engine
-    per pool, seeds `seed + i`)."""
+    per pool, seeds `seed + i`).
+
+    With a `mesh` (`parallel/mesh.py`; `device` is then this rank's) the
+    parameters start as global rank 0's (DDP's initial broadcast), and
+    dp slot d draws its dropout from `seed + 1 + 100003 d`; the caller
+    gives each dp slot its own envs. Under mp the trained planner
+    (`train_planner`) is a split copy; the Agent keeps the whole planner,
+    gathered after every learn step, for the rollout and evaluation.
+    Evaluation stays per rank."""
 
     def __init__(self, cfg: ExperimentConfig, envs, *,
                  params: Optional[AgentParams] = None,
                  ckpt_dir: str = "checkpoints", seed: int = 0,
-                 tb_dir: Optional[str] = None, device="cuda"):
+                 tb_dir: Optional[str] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.envs = envs
         self.ckpt_dir = ckpt_dir
         self.device = resolve_device(device)
+        self.mesh = mesh
         if params is None:
             params = init_agent_params(cfg, seed)
         # the Agent holds the parameters (frozen for its inference-mode
-        # programs); the planner is trained in place, so the rollout
-        # always reads the newest planner
+        # programs); without mp the planner is trained in place, so the
+        # rollout always reads the newest planner
         self.agent = Agent(cfg, params, device=self.device)
         self.params = self.agent.params
-        self.optimizer = make_il_optimizer(cfg, self.params.planner)
+        self.train_planner = self.params.planner
+        stride = 0
+        if mesh is not None:
+            meshlib.broadcast_params(self.params)
+            stride = meshlib.DP_SEED_STRIDE * mesh.dp_index
+            if mesh.mp > 1:
+                self.train_planner = meshlib.shard_params(
+                    mesh, copy.deepcopy(self.params.planner),
+                    {"": cfg.planner.num_heads})
+        self.optimizer = make_il_optimizer(cfg, self.train_planner)
         if isinstance(envs, (list, tuple)):
             self.engine = PipelinedRollout(
                 [RolloutEngine(cfg, self.agent, e, seed=seed + i)
@@ -348,7 +394,7 @@ class FinetuneTrainer:
             self.engine = RolloutEngine(cfg, self.agent, envs, seed=seed)
         # per-iteration dropout draws, on the training device
         self.generator = torch.Generator(
-            device=self.device).manual_seed(seed + 1)
+            device=self.device).manual_seed(seed + 1 + stride)
         self.iteration = 0
         self.logs = defaultdict(list)
         self.timer = StepTimer()
@@ -365,6 +411,18 @@ class FinetuneTrainer:
         for e in pools:
             if hasattr(e, "close"):
                 e.close()
+
+    def _refresh_rollout_planner(self):
+        """Under mp, the whole planner of the rollout made the split
+        trained one's (a gather over the mp group)."""
+        if self.train_planner is not self.params.planner:
+            meshlib.gather_into(self.params.planner, self.train_planner)
+
+    def _split_planner(self):
+        """Under mp, the split trained planner made the whole one's."""
+        if self.train_planner is not self.params.planner:
+            meshlib.load_full_state_dict(self.train_planner,
+                                         self.params.planner.state_dict())
 
     def resume_latest(self, ckpt_dir: Optional[str] = None) -> bool:
         """IL.is_requeue: restore the newest checkpoint incl. optimizer
@@ -390,18 +448,25 @@ class FinetuneTrainer:
             ratio = il.sample_ratio ** (
                 self.iteration // il.decay_interval + 1)
             with self.timer.phase("rollout"):
-                rec = self.engine.run("train", sample_ratio=ratio,
-                                      gt_paths=gt_paths)
+                rec = None
+                if self.mesh is None or self.mesh.mp_index == 0:
+                    rec = self.engine.run("train", sample_ratio=ratio,
+                                          gt_paths=gt_paths)
+                if self.mesh is not None:
+                    # the mp peers learn on mp rank 0's record, exactly
+                    rec = self.mesh.broadcast_mp(rec)
             with self.timer.phase("learn"):
                 brec = bucket_record(rec, il)
                 self.last_bucket = (brec.step_valid.shape[1],
                                     brec.gmap_mask.shape[2])
                 self.bucket_counts[self.last_bucket] = \
                     self.bucket_counts.get(self.last_bucket, 0) + 1
-                loss = learn_step(self.params.planner, self.optimizer,
-                                  self.cfg, self.batch(brec), self.generator)
+                loss = learn_step(self.train_planner, self.optimizer,
+                                  self.cfg, self.batch(brec), self.generator,
+                                  self.mesh)
                 # the learn phase ends on the device: read it inside
                 loss = float(loss)
+                self._refresh_rollout_planner()
             self.iteration += 1
             self.logs["IL_loss"].append(loss)
             self.logs["rollout_s"].append(self.timer.last("rollout"))
@@ -420,14 +485,17 @@ class FinetuneTrainer:
         return {k: float(np.mean(v[-iters:])) for k, v in self.logs.items()}
 
     def evaluate(self, episode_count: int,
-                 gt_paths: Optional[dict] = None) -> Dict[str, float]:
+                 gt_paths: Optional[dict] = None,
+                 video_dir: Optional[str] = None) -> Dict[str, float]:
         """Eval loop (ss_trainer_ETP.py:513-641): argmax policy, metric
-        aggregation over unique episodes."""
+        aggregation over unique episodes. video_dir writes one navigator
+        video per episode (VIDEO_DIR pipeline, `utils/visualization.py`)."""
         stat_eps: dict = {}
         guard = stalled = 0
         while len(stat_eps) < episode_count and guard < 10 * episode_count:
             before = len(stat_eps)
-            self.engine.run("eval", stat_eps=stat_eps, gt_paths=gt_paths)
+            self.engine.run("eval", stat_eps=stat_eps, gt_paths=gt_paths,
+                            video_dir=video_dir)
             guard += 1
             stalled = stalled + 1 if len(stat_eps) == before else 0
             if stalled >= 3:
@@ -485,7 +553,8 @@ class FinetuneTrainer:
         from etpnav_tpu_torch.training.warm_start import \
             load_pretrained_planner
         load_pretrained_planner(path, self.params.planner)
-        self.optimizer = make_il_optimizer(self.cfg, self.params.planner)
+        self._split_planner()
+        self.optimizer = make_il_optimizer(self.cfg, self.train_planner)
 
     def load_pretrained_planner(self, path: str):
         """MODEL.pretrained_path: a released PyTorch pretrain (or
@@ -503,17 +572,24 @@ class FinetuneTrainer:
         load_jax_tree(self.params.planner, convert_planner(
             sd, p.num_l_layers, p.num_pano_layers, p.num_x_layers),
             "planner")
-        self.optimizer = make_il_optimizer(self.cfg, self.params.planner)
+        self._split_planner()
+        self.optimizer = make_il_optimizer(self.cfg, self.train_planner)
 
     def save_checkpoint(self, path: str):
-        checkpoints.save_checkpoint(path, {
+        """The one-process format (the Agent's whole parameters, the
+        optimizer's moments gathered whole); under a mesh every rank calls
+        it and global rank 0 writes."""
+        checkpoints.save_from_rank0(path, {
             "params": self.params.state_dict(),
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": meshlib.full_optimizer_state(self.optimizer),
             "iteration": self.iteration,
         })
 
     def load_checkpoint(self, path: str):
+        """A checkpoint of any layout; split parameters and their moments
+        take their shards."""
         state = checkpoints.load_checkpoint(path, map_location=self.device)
         self.params.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self._split_planner()
+        meshlib.load_full_optimizer_state(self.optimizer, state["opt_state"])
         self.iteration = int(state["iteration"])

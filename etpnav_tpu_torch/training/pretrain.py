@@ -7,10 +7,13 @@ with no-decay groups (optim/misc.py:12-40), the warmup-linear or noam
 schedule (optim/sched.py), gradient clipping and periodic validation
 (validate_mlm / validate_sap, train_r2r.py:355-444).
 
-One process on one device: each step draws a task, runs its forward and
-loss, the backward and one optimizer step. Every attention goes through
-K-ATT forward and K-ATT-BWD backward (`ops/fused_attention.py`), with the
-attention-prob dropout inside the kernels. bf16 activations where
+Each step draws a task, runs its forward and loss, the backward and one
+optimizer step, on one device or, with a `parallel/mesh.py` mesh, on
+each rank of a dp x mp world (per-rank data, the task pick shared, the
+gradients summed over dp, the parameters split over mp). Every
+attention goes through K-ATT forward and K-ATT-BWD backward
+(`ops/fused_attention.py`), with the attention-prob dropout inside the
+kernels. bf16 activations where
 `PlannerConfig.use_bf16` says so, at the JAX package's rounding points:
 the text, pano, graph and local stacks in bf16; the MLM branch (the
 text attending into the graph, and the tied decoder) in fp32, as there.
@@ -36,6 +39,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from etpnav_tpu_torch.config import ExperimentConfig, PlannerConfig
@@ -54,6 +58,9 @@ from etpnav_tpu_torch.models.planner import (
     RegionHead,
 )
 from etpnav_tpu_torch.ops.basic import LayerNorm, init_weights, mask_to_bias
+from etpnav_tpu_torch.parallel import mesh as meshlib
+from etpnav_tpu_torch.parallel import tensor_parallel
+from etpnav_tpu_torch.parallel.mesh import Mesh
 from etpnav_tpu_torch.training import checkpoints
 
 logger = logging.getLogger("etpnav_tpu_torch.pretrain")
@@ -224,30 +231,53 @@ def _finite_log_softmax(logits: torch.Tensor) -> torch.Tensor:
         torch.where(torch.isfinite(logits), logits, -1e9), dim=-1)
 
 
-def _masked_mean_nll(logp: torch.Tensor, labels: torch.Tensor
-                     ) -> torch.Tensor:
-    """Mean NLL over labels >= 0 (the sum over max(count, 1))."""
+def _count(n: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A loss's denominator: the count summed over the dp group, as the
+    JAX package takes it over the global batch, with no gradient (each
+    rank's loss is then its share of the global mean, and the summed
+    gradients are the global mean's)."""
+    return n if mesh is None else mesh.dp_sum(n)
+
+
+def _masked_mean(nll: torch.Tensor, labels: torch.Tensor,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean of the per-label NLL over labels >= 0 (the sum over
+    max(count, 1))."""
     valid = labels >= 0
-    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     return (torch.where(valid, nll, 0.0).sum()
-            / valid.sum().clamp_min(1))
+            / _count(valid.sum(), mesh).clamp_min(1))
+
+
+def _masked_mean_nll(logp: torch.Tensor, labels: torch.Tensor,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean NLL over labels >= 0 (the sum over max(count, 1))."""
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return _masked_mean(nll, labels, mesh)
 
 
 def sap_loss(params, cfg: PlannerConfig, batch: dict,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
     logits = forward_sap(params, cfg, batch, generator, train=True)
     return _masked_mean_nll(_finite_log_softmax(logits),
-                            batch["global_act_labels"])
+                            batch["global_act_labels"], mesh)
 
 
 def mlm_loss(params, cfg: PlannerConfig, batch: dict,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean token NLL over the masked positions; under tensor
+    parallelism the log-softmax runs over the vocabulary slices
+    (`tensor_parallel.vocab_nll`)."""
     logits = forward_mlm(params, cfg, batch, generator, train=True)
-    return _masked_mean_nll(torch.log_softmax(logits, dim=-1),
-                            batch["txt_labels"])
+    labels = batch["txt_labels"]
+    nll = tensor_parallel.vocab_nll(logits, labels.clamp_min(0),
+                                    params.embeddings.word_embeddings)
+    return _masked_mean(nll, labels, mesh)
 
 
-def _masked_kl(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+def _masked_kl(logits: torch.Tensor, batch: dict,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """KL(soft CLIP labels || predicted) averaged over the masked view
     tokens, 0 log 0 taken as 0 — the MRC loss and its validation metric."""
     logp = torch.log_softmax(logits, dim=-1)
@@ -256,21 +286,26 @@ def _masked_kl(logits: torch.Tensor, batch: dict) -> torch.Tensor:
                         target * torch.log(target.clamp_min(1e-12)), 0.0)
     kl = (plogp - target * logp).sum(-1)                     # (B, P)
     m = batch["vp_view_mrc_masks"]
-    return torch.where(m, kl, 0.0).sum() / m.sum().clamp_min(1)
+    return (torch.where(m, kl, 0.0).sum()
+            / _count(m.sum(), mesh).clamp_min(1))
 
 
 def mrc_loss(params, cfg: PlannerConfig, batch: dict,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
     """KL over the masked view tokens (pretrain_cmt.py:210-214)."""
     return _masked_kl(forward_mrc(params, cfg, batch, generator, train=True),
-                      batch)
+                      batch, mesh)
 
 
 def og_loss(params, cfg: PlannerConfig, batch: dict,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     logp = _finite_log_softmax(
         forward_og(params, cfg, batch, generator, train=True))
-    return -logp.gather(-1, batch["obj_labels"][:, None])[:, 0].mean()
+    nll = -logp.gather(-1, batch["obj_labels"][:, None])[:, 0]
+    n = torch.tensor(nll.shape[0], device=nll.device)
+    return nll.sum() / _count(n, mesh)
 
 
 LOSS_FNS = {"mlm": mlm_loss, "sap": sap_loss, "mrc": mrc_loss,
@@ -369,7 +404,10 @@ class PretrainOptimizer(torch.optim.Optimizer):
     the trust ratio is taken per JAX leaf (a stack's layers together).
     Scalars (bias corrections, the schedule) in fp32 as JAX computes
     them. The counters live in the parameter group, so `state_dict()`
-    holds only tensors and plain values."""
+    holds only tensors and plain values. Under tensor parallelism the
+    norms of the global clip and of the trust ratio are those of the
+    whole leaves: a split leaf's squared norm is summed over its mp
+    group, a replicated one counted once."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  cfg: ExperimentConfig, decay: Dict[str, bool]):
@@ -383,6 +421,10 @@ class PretrainOptimizer(torch.optim.Optimizer):
         self._leaf = [leaves.setdefault(leaf_name(n), len(leaves))
                       for n, _ in named]
         self._num_leaves = len(leaves)
+        specs = [getattr(p, "tp", None) for _, p in named]
+        self._mp_group = next((s.group for s in specs if s is not None),
+                              None)
+        self._split = [s is not None for s in specs]
         super().__init__([p for _, p in named], {
             "optim": pt.optim, "betas": tuple(pt.betas),
             "weight_decay": pt.weight_decay, "grad_norm": pt.grad_norm,
@@ -413,8 +455,13 @@ class PretrainOptimizer(torch.optim.Optimizer):
                  for p in params]
 
         # clip_by_global_norm: (g / norm) * max where norm >= max
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-            grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self._mp_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            norm = self._whole_sq(norms.square(), torch.zeros(
+                1, dtype=torch.long, device=norms.device).expand(
+                    len(norms)), 1)[0].sqrt()
         keep = norm < group["grad_norm"]
         g = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
         torch._foreach_mul_(g, torch.where(keep, 1.0, group["grad_norm"]))
@@ -494,12 +541,27 @@ class PretrainOptimizer(torch.optim.Optimizer):
 
         def leaf_norms(ts):
             sq = torch.stack(torch._foreach_norm(ts)).square()
+            if self._mp_group is not None:
+                return self._whole_sq(sq, leaf, self._num_leaves).sqrt()
             return torch.zeros(self._num_leaves, device=dev).index_add_(
                 0, leaf, sq).sqrt()
 
         pn, un = leaf_norms(params), leaf_norms(u)
         ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)[leaf]
         torch._foreach_mul_(u, list(ratio.unbind()))
+
+    def _whole_sq(self, sq: torch.Tensor, index: torch.Tensor,
+                  n: int) -> torch.Tensor:
+        """Per-parameter squared norms summed into `n` bins by `index`,
+        the split parameters' bins summed over the mp group. The bins are
+        a product with a one-hot matrix, not an atomic `index_add`: every
+        rank of the group must get the same bits, or the replicas part."""
+        split = torch.tensor(self._split, device=sq.device)
+        onehot = (index[None, :] == torch.arange(n, device=sq.device)[
+            :, None]).to(sq.dtype)
+        part = onehot @ torch.where(split, sq, 0.0)
+        dist.all_reduce(part, group=self._mp_group)
+        return part + onehot @ torch.where(split, 0.0, sq)
 
 
 def make_optimizer(cfg: ExperimentConfig,
@@ -516,7 +578,11 @@ def make_optimizer(cfg: ExperimentConfig,
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> dict:
     """A sampler batch as tensors on `device`: ids and labels int64,
-    masks bool, features fp32."""
+    masks bool, features fp32. Every value's leading dim is the batch's
+    (under a mesh, this rank's own rows)."""
+    rows = {k: np.shape(v)[0] for k, v in batch.items()}
+    if len(set(rows.values())) > 1:
+        raise ValueError(f"batch_to_device: leading dims differ: {rows}")
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -554,7 +620,18 @@ def pretrain_shapes(cfg: ExperimentConfig) -> PretrainShapes:
 class PretrainTrainer:
     """Task-mixed pretraining on one device: the GPU unless `device="cpu"`
     is passed. Parameters from a seeded CPU generator, dropout from a
-    generator on the device seeded `seed + 1`. The batches come from
+    generator on the device seeded `seed + 1`.
+
+    With a `mesh` (`parallel/mesh.py`; `device` is then this rank's) the
+    parameters are broadcast from global rank 0 and split over mp by the
+    rules; the data stream of dp slot d is seeded `seed + 100003 d` (the
+    JAX package's per-process stream, pretrain.py:393; the mp peers of a
+    slot draw the same batch), its dropout `seed + 1 + 100003 d`, and the
+    task pick keeps the shared seed, so every rank trains the same task
+    each step. Each loss is normalised by its dp-global count and the
+    gradients are summed over dp; the returned loss is the global one.
+    Checkpoints keep the one-process format (whole tensors), written by
+    global rank 0 and re-split on load. The batches come from
     `batches`, any iterator of (task, batch) — a `MetaSampler` over
     `data/mp3d_pretrain.py`'s real-data source, or
     `data/pretrain_loader.py`'s `MetaLoader` — or by default from a
@@ -565,24 +642,36 @@ class PretrainTrainer:
 
     def __init__(self, cfg: ExperimentConfig, shapes: PretrainShapes, *,
                  seed: int = 0, num_scans: int = 8, scan_size: int = 24,
-                 device="cuda", batches: Optional[Iterable] = None):
+                 device="cuda", batches: Optional[Iterable] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.shapes = shapes
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.seed = seed
         pt = cfg.pretrain
         self.params = init_pretrain_params(
             cfg.planner, torch.Generator().manual_seed(seed), pt.tasks,
             pt.image_prob_size).to(self.device)
+        if mesh is not None:
+            meshlib.broadcast_params(self.params)
+            meshlib.shard_params(mesh, self.params,
+                                 {"": cfg.planner.num_heads})
         self.optimizer = make_optimizer(cfg, self.params)
-        self.sampler = PretrainSampler(shapes, seed=seed,
+        stride = meshlib.DP_SEED_STRIDE * self._dp_index
+        self.sampler = PretrainSampler(shapes, seed=seed + stride,
                                        num_scans=num_scans,
                                        scan_size=scan_size)
         self.meta = iter(batches) if batches is not None else iter(
             MetaSampler(self.sampler, pt.batch_size, pt.task_ratios,
                         seed=seed, tasks=pt.tasks))
         self.generator = torch.Generator(
-            device=self.device).manual_seed(seed + 1)
+            device=self.device).manual_seed(seed + 1 + stride)
         self.step = 0
+
+    @property
+    def _dp_index(self) -> int:
+        return 0 if self.mesh is None else self.mesh.dp_index
 
     def _put(self, batch: Dict[str, np.ndarray]) -> dict:
         return batch_to_device(batch, self.device)
@@ -592,8 +681,11 @@ class PretrainTrainer:
         returns the detached loss (reading it is the caller's sync)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = LOSS_FNS[task](self.params, self.cfg.planner, batch,
-                              self.generator)
+                              self.generator, mesh=self.mesh)
         loss.backward()
+        if self.mesh is not None:
+            self.mesh.sync_grads(list(self.params.parameters()))
+            loss = self.mesh.dp_sum(loss)
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -623,23 +715,36 @@ class PretrainTrainer:
     # ---- checkpointing (ModelSaver, pretrain utils/save.py:23-45) ----
 
     def save_checkpoint(self, path: str):
-        checkpoints.save_checkpoint(path, {
+        """The one-process format; under a mesh every rank gathers (a
+        collective), global rank 0 writes, and the others wait for it.
+        `generators` holds each dp slot's dropout stream."""
+        state = {
             CHECKPOINT_MARKER: 1,
-            "params": self.params.state_dict(),
-            "opt_state": self.optimizer.state_dict(),
+            "params": meshlib.full_state_dict(self.params),
+            "opt_state": meshlib.full_optimizer_state(self.optimizer),
             "step": self.step,
             "generator": self.generator.get_state(),
-        })
+        }
+        if self.mesh is not None and self.mesh.dp > 1:
+            gens = meshlib.all_gather_object(self.generator.get_state())
+            state["generators"] = gens[::self.mesh.mp]
+            state["generator"] = gens[0]
+        checkpoints.save_from_rank0(path, state)
 
     def load_checkpoint(self, path: str):
+        """Any layout's checkpoint into this one: split parameters and
+        their moments take their shards. A dp slot the checkpoint has no
+        dropout stream for keeps its own."""
         state = checkpoints.load_checkpoint(path, map_location="cpu")
         if CHECKPOINT_MARKER not in state:
             raise ValueError(f"{path} is not a pretrain checkpoint of "
                              "etpnav_tpu_torch")
-        self.params.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        meshlib.load_full_state_dict(self.params, state["params"])
+        meshlib.load_full_optimizer_state(self.optimizer, state["opt_state"])
         self.step = int(state["step"])
-        self.generator.set_state(state["generator"])
+        gens = state.get("generators", [state["generator"]])
+        if self._dp_index < len(gens):
+            self.generator.set_state(gens[self._dp_index])
 
     def resume_latest(self, ckpt_dir: str) -> bool:
         """Resume from the newest model_step_N (is_requeue,
@@ -655,9 +760,13 @@ class PretrainTrainer:
     @torch.no_grad()
     def _predict(self, forward, task: str):
         """A fresh `task` batch (it advances the training stream, as in
-        the JAX package) and the argmax of `forward` on it."""
+        the JAX package) and the argmax of `forward` on it (over the whole
+        vocabulary when the MLM logits are split)."""
         batch = self.sampler.sample_batch(self.cfg.pretrain.batch_size, task)
         logits = forward(self.params, self.cfg.planner, self._put(batch))
+        if task == "mlm":
+            logits = tensor_parallel.full_vocab_logits(
+                logits, self.params.embeddings.word_embeddings)
         return batch, logits.argmax(-1).cpu().numpy()
 
     @torch.no_grad()

@@ -107,10 +107,11 @@ class RolloutEngine:
         metrics; 'infer' fills path_eps with recorded paths.
         sample_actions: in eval/infer, sample the policy's softmax instead
         of argmax (INFERENCE.SAMPLE, ss_trainer_ETP.py:895-903).
-        video_dir: navigator videos; not ported yet.
+        video_dir: in eval, write one navigator video per episode —
+        pano strip over a top-down map with the topo graph (the VIDEO_DIR
+        pipeline, environments.py:486-516 + utils.py:647-752;
+        `utils/visualization.py`).
         """
-        if video_dir is not None:
-            raise NotImplementedError("eval videos are not ported yet")
         cfg = self.cfg
         il = cfg.il
         envs = self.envs
@@ -184,6 +185,9 @@ class RolloutEngine:
         # per-env ghost real positions for the teacher (gid -> [pos])
         ghost_real: List[Dict[int, list]] = [dict() for _ in range(B)]
         prev_node = [None] * B
+        record_video = mode == "eval" and video_dir is not None
+        video_frames: Dict[int, list] = {}
+        video_traj: Dict[int, list] = {}
 
         for stepk in range(T):
             # full pool: padding rows re-encode their last observation;
@@ -333,6 +337,30 @@ class RolloutEngine:
                 if consumed is not None:
                     ghost_real[gi].pop(consumed, None)
 
+            if record_video:
+                from etpnav_tpu_torch.utils.visualization import \
+                    navigator_video_frame
+                for i, gi in enumerate(live):
+                    gmap = gmaps[gi]
+                    video_traj.setdefault(gi, []).append(
+                        np.asarray(pos[i]))
+                    gt = (np.asarray(gt_paths[episodes[gi].episode_id])
+                          if gt_paths else
+                          np.stack(episodes[gi].reference_path))
+                    act = env_actions[i]
+                    video_frames.setdefault(gi, []).append(
+                        navigator_video_frame(
+                            {"rgb": rgb[gi]},
+                            agent_pos=pos[i],
+                            trajectory=list(video_traj[gi]),
+                            gt_path=list(gt), goal=gt[-1],
+                            nodes=list(gmap.node_pos),
+                            edges=[(gmap.node_pos[u], gmap.node_pos[v])
+                                   for u, v in gmap.edge_list()],
+                            predict_ghost=act.get("ghost_pos"),
+                            ghosts=[g.aug_pos
+                                    for g in gmap.ghosts.values()]))
+
             results = envs.step(env_actions)
 
             # ---- metrics / path recording on done ----
@@ -352,6 +380,14 @@ class RolloutEngine:
                         info["steps_taken"],
                         info["collisions"]["count"],
                         il.success_distance)
+                    if record_video and video_frames.get(live[i]):
+                        from etpnav_tpu_torch.utils.visualization import \
+                            generate_video
+                        m = stat_eps[ep.episode_id]
+                        generate_video(
+                            video_frames.pop(live[i]), video_dir,
+                            str(ep.episode_id),
+                            {"spl": m["spl"], "ndtw": m["ndtw"]})
             if mode == "infer" and path_eps is not None:
                 for i in done_local:
                     ep = episodes[live[i]]

@@ -25,6 +25,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from etpnav_tpu_torch.parallel import mesh as meshlib
 from etpnav_tpu_torch.training import checkpoints
 from etpnav_tpu_torch.training.pretrain import CHECKPOINT_MARKER
 
@@ -61,7 +62,8 @@ def is_pretrain_checkpoint(path: str) -> bool:
 
 def load_pretrained_planner(path: str, planner: nn.Module) -> None:
     """Load the trunk of a `PretrainTrainer` checkpoint into the fine-tune
-    `planner`, in place. Any difference of structure (a missing or extra
+    `planner`, in place; a planner split over a tensor-parallel group
+    takes its shards. Any difference of structure (a missing or extra
     tensor) or of shape between the two stages raises ValueError before
     anything is copied: a partial load is never silent."""
     state = checkpoints.load_checkpoint(path, map_location="cpu")
@@ -69,7 +71,9 @@ def load_pretrained_planner(path: str, planner: nn.Module) -> None:
         raise ValueError(f"{path} is not a pretrain checkpoint of "
                          "etpnav_tpu_torch")
     trunk = pretrain_to_planner(state["params"])
-    like = planner.state_dict()
+    like = {k: v.shape for k, v in planner.state_dict().items()}
+    like.update({k: meshlib.full_shape(p)
+                 for k, p in planner.named_parameters()})
     missing, extra = sorted(set(like) - set(trunk)), sorted(set(trunk)
                                                             - set(like))
     if missing or extra:
@@ -78,10 +82,10 @@ def load_pretrained_planner(path: str, planner: nn.Module) -> None:
             f"planner: missing {missing[:5]}, extra {extra[:5]} — the two "
             "stages were built from different PlannerConfigs")
     for k, v in trunk.items():
-        if tuple(v.shape) != tuple(like[k].shape):
+        if tuple(v.shape) != tuple(like[k]):
             raise ValueError(
                 f"pretrain checkpoint tensor {k} has shape "
                 f"{tuple(v.shape)}, the fine-tune planner "
-                f"{tuple(like[k].shape)} — the two stages were built from "
+                f"{tuple(like[k])} — the two stages were built from "
                 "different PlannerConfigs")
-    planner.load_state_dict(trunk)
+    meshlib.load_full_state_dict(planner, trunk)

@@ -53,8 +53,9 @@ TINY_YAML = str(ROOT / "configs" / "r2r_tiny.yaml")
 # YAML config
 # ---------------------------------------------------------------------------
 
-# the port's form of a JAX module switch (clip_vit.USE_FUSED_BLOCK)
-PORT_ONLY = {("clip", "use_fused_block")}
+# the port's form of a JAX module switch (clip_vit.USE_FUSED_BLOCK), and
+# the torch.distributed backend, which JAX does not choose
+PORT_ONLY = {("clip", "use_fused_block"), ("mesh", "backend")}
 # fields whose default the port sets apart (ROADMAP §3): IL.remat_nav is
 # off, where the JAX package turns it on for a v5e's memory
 PORT_DEFAULTS = {("il", "remat_nav")}
@@ -102,12 +103,20 @@ def test_yaml_configs_load_to_jax_values(name):
 
 @pytest.mark.parametrize("section,item", [("MESH", "Distribution")])
 def test_unported_sections_raise(tmp_path, section, item):
-    """A YAML file with a section the port does not have yet is refused,
-    naming the ROADMAP item that ports it by its title."""
+    """Every section of the JAX package's config is ported: MESH (the
+    last one, ROADMAP §1 "Distribution") loads to the JAX values plus
+    the port's backend, and a section neither package has raises."""
     path = tmp_path / "exp.yaml"
-    path.write_text(f"BASE: r2r\n{section}:\n  mp: 2\n")
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP §1, "{item}"'):
+    path.write_text(f"BASE: r2r\n{section}:\n  mp: 2\n  dp: 2\n")
+    ours = config_yaml.load_config(str(path))
+    theirs = jyaml.load_config(str(path))
+    assert (ours.mesh.dp, ours.mesh.mp, ours.mesh.backend) == (2, 2, "")
+    assert_config_matches_jax(ours, theirs)
+    path.write_text(f"BASE: r2r\n{section}:\n  backend: gloo\n")
+    assert config_yaml.load_config(str(path)).mesh.backend == "gloo"
+    path.write_text(f"BASE: r2r\n{item.upper()}:\n  mp: 2\n")
+    with pytest.raises(KeyError, match=f"unknown config section "
+                                       f"'{item.upper()}'"):
         config_yaml.load_config(str(path))
 
 
@@ -127,8 +136,10 @@ def test_dagger_yaml_loads_to_jax_values():
 
 
 def test_unknown_and_jax_only_keys_raise():
-    with pytest.raises(NotImplementedError, match='"Distribution"'):
-        config_yaml.config_from_dict({"BASE": "tiny", "MESH": {"mp": 2}})
+    assert config_yaml.config_from_dict(
+        {"BASE": "tiny", "MESH": {"mp": 2}}).mesh.mp == 2
+    with pytest.raises(KeyError, match="unknown config keys.*devices"):
+        config_yaml.config_from_dict({"MESH": {"devices": 8}})
     # a JAX-only switch the port does not read is refused, not dropped,
     # and the message says it is TPU-only
     with pytest.raises(KeyError, match="attn_probs_bf16"):
@@ -249,9 +260,11 @@ def test_run_refusals(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run(["--exp-config", exp, "--num-envs", "2"])
     base = ["--exp-config", exp, "--device", "cpu", "--num-envs", "2"]
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP §1, "Legacy and offline"'):
-        run(base + ["--run-type", "eval", "--video"])
+    # a mesh needs a launched world (torchrun): one process is refused
+    with pytest.raises(ValueError, match=r"world size \(1\)"):
+        run(base + ["MESH.dp=2"])
+    with pytest.raises(ValueError, match="one process"):
+        run(base + ["--trainer", "DAgger", "MESH.mp=2"])
     # a directory is a JAX (orbax) pretrain checkpoint: not read
     with pytest.raises(NotImplementedError, match="orbax"):
         run(["--exp-config", _exp(tmp_path, f"PRETRAINED_PATH: {tmp_path}\n"),
