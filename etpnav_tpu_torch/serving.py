@@ -21,6 +21,14 @@ Serving choices kept from the JAX package:
 - map updates + action translation (the only Python logic) run between
   the two device calls.
 
+While tracing is on (`utils/logging.py`) a request's wait from `step()`
+to the batcher's claim is the span `serve.queue_wait` on the client's
+thread (key (sid, step), with the id of the batch that claimed it); the
+batcher's `_collect` is `serve.collect` and `_process` is `serve.batch`
+(key: the batch id) with the consecutive children `serve.stage`,
+`serve.perceive`, `serve.map`, `serve.score` and `serve.translate`;
+`create_session`'s text encoding is `serve.encode_text` (key: the sid).
+
 Returned actions use the env-action dict vocabulary of the rollout
 engine / env layer (environments.py:436-477 semantics): act 0 = stop at
 `stop_pos` (optionally walking `back_path`), act 4 = go to `ghost_pos`
@@ -34,7 +42,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from etpnav_tpu_torch.training.rollout import (
     _softmax,
     build_env_action,
 )
+from etpnav_tpu_torch.utils import logging as tracing
 
 
 @dataclass
@@ -74,6 +83,10 @@ class _Pending:
     cancelled: bool = False         # set by a timed-out/aborted caller
     claimed: bool = False           # set by the batcher once processing
                                     # is committed; guarded by server lock
+    stepk: int = 0                  # the session's step it asks for
+    t_enqueued: float = 0.0         # perf_counter when queued
+    thread: int = 0                 # the caller's thread
+    batch_id: int = -1              # the batch that claimed it
 
 
 class NavServer:
@@ -104,6 +117,8 @@ class NavServer:
         self._steps_served = 0
         self._batches = 0
         self._failed_batches = 0
+        self._deadline_batches = 0
+        self._batch_ids = itertools.count()
         self._thread = threading.Thread(target=self._batch_loop,
                                         daemon=True)
         self._thread.start()
@@ -152,12 +167,14 @@ class NavServer:
         """Encode the instruction (one (1, L) dispatch) and register a
         fresh episode. Returns the session id."""
         cfg = self.cfg
-        ids = _fit(np.asarray(instruction_tokens), cfg.il.max_text_len,
-                   cfg.planner.pad_token_id)[None]
-        mask = ids != cfg.planner.pad_token_id
-        embeds = _host(self.agent.encode_text(ids, mask))[0]
+        sid = next(self._sid)
+        with tracing.span("serve.encode_text", key=sid):
+            ids = _fit(np.asarray(instruction_tokens), cfg.il.max_text_len,
+                       cfg.planner.pad_token_id)[None]
+            mask = ids != cfg.planner.pad_token_id
+            embeds = _host(self.agent.encode_text(ids, mask))[0]
         ses = NavSession(
-            sid=next(self._sid), txt_embeds=embeds, txt_mask=mask[0],
+            sid=sid, txt_embeds=embeds, txt_mask=mask[0],
             gmap=TopoMap(loc_noise=cfg.il.loc_noise,
                          merge_ghost=cfg.graph.merge_ghost))
         with self._lock:
@@ -198,7 +215,9 @@ class NavServer:
                 raise RuntimeError(
                     f"session {sid} already has a step in flight")
             ses.in_flight = True
-        p = _Pending(ses, rgb, depth, pos, ori_xyzw)
+        p = _Pending(ses, rgb, depth, pos, ori_xyzw, stepk=ses.stepk,
+                     t_enqueued=time.perf_counter(),
+                     thread=threading.get_ident())
         try:
             self._queue.put(p)
             if not p.event.wait(timeout):
@@ -238,19 +257,22 @@ class NavServer:
 
     def stats(self) -> dict:
         """Service counters: steps served, successful device dispatches,
-        failed dispatches, mean batch occupancy (slots used / max_batch —
-        the device batch is always padded to max_batch), live sessions,
-        and current queue depth. Counters reflect SUCCESSFUL batches only
-        — a failing dispatch poisons its sessions and increments
-        failed_batches instead."""
+        failed dispatches, the batches that `max_wait_ms` closed before
+        they were full (deadline_batches: tune `max_wait_ms` by it), mean
+        batch occupancy (slots used / max_batch — the device batch is
+        always padded to max_batch), live sessions, and current queue
+        depth. Counters reflect SUCCESSFUL batches only — a failing
+        dispatch poisons its sessions and increments failed_batches
+        instead."""
         with self._lock:
             batches = self._batches
             steps = self._steps_served
             failed = self._failed_batches
+            deadline = self._deadline_batches
             live = sum(1 for s in self._sessions.values() if not s.done)
         occ = steps / (batches * self.max_batch) if batches else 0.0
         return {"steps_served": steps, "batches": batches,
-                "failed_batches": failed,
+                "failed_batches": failed, "deadline_batches": deadline,
                 "mean_occupancy": round(occ, 4),
                 "live_sessions": live,
                 "queue_depth": self._queue.qsize()}
@@ -289,11 +311,15 @@ class NavServer:
 
     # -- batcher ------------------------------------------------------------
 
-    def _collect(self) -> List[_Pending]:
+    def _collect(self) -> Tuple[List[_Pending], float]:
+        """The next batch and the perf_counter time its first request was
+        taken: the first to arrive, then any more until the batch is full
+        or `max_wait_ms` after the first."""
         try:
             first = self._queue.get(timeout=0.05)
         except queue.Empty:
-            return []
+            return [], 0.0
+        t_first = time.perf_counter()
         batch = [first]
         deadline = _now() + self.max_wait_s
         while len(batch) < self.max_batch:
@@ -304,11 +330,13 @@ class NavServer:
                 batch.append(self._queue.get(timeout=left))
             except queue.Empty:
                 break
-        return batch
+        return batch, t_first
 
     def _batch_loop(self):
         while not self._stop.is_set():
-            batch = self._collect()
+            batch, t_first = self._collect()
+            t_closed = time.perf_counter()
+            full = len(batch) == self.max_batch
             # claim under the lock: after this point a timed-out caller
             # knows its observation may be registered server-side (and
             # poisons its session); before it, cancellation is clean
@@ -318,12 +346,22 @@ class NavServer:
                     p.claimed = True
             if not batch:
                 continue
+            bid = next(self._batch_ids)
+            t_claim = time.perf_counter()
+            tracing.record("serve.collect", t_first, t_closed, key=bid,
+                           full=full)
+            for p in batch:
+                p.batch_id = bid
+                tracing.record("serve.queue_wait", p.t_enqueued, t_claim,
+                               key=(p.session.sid, p.stepk),
+                               thread=p.thread, batch=bid)
             try:
                 self._process(batch)
                 # counters move BEFORE any client event fires: a caller
                 # may read stats() the instant it unblocks
                 with self._lock:
                     self._batches += 1
+                    self._deadline_batches += not full
                     self._steps_served += len(batch)
                 for p in batch:
                     p.event.set()
@@ -347,91 +385,98 @@ class NavServer:
         Does NOT set completion events — the batcher does that after the
         service counters move, so stats() is consistent the moment a
         client unblocks."""
-        cfg = self.cfg
-        n = len(batch)
-        Bs = self.max_batch                   # static device batch
-        # sized from cfg, not from batch[0]: every request was validated
-        # at step() entry, so the device shapes are load-independent
-        rgb = np.zeros((Bs, 12, cfg.clip.image_size, cfg.clip.image_size,
-                        3), np.uint8)
-        dep = np.zeros((Bs, 12, cfg.depth.input_size,
-                        cfg.depth.input_size, 1), np.float32)
-        for i, p in enumerate(batch):
-            rgb[i] = p.rgb
-            dep[i] = p.depth
+        with tracing.span("serve.batch", key=batch[0].batch_id), \
+                tracing.sequence() as seq:
+            seq.next("serve.stage")
+            cfg = self.cfg
+            n = len(batch)
+            Bs = self.max_batch                   # static device batch
+            # sized from cfg, not from batch[0]: every request was validated
+            # at step() entry, so the device shapes are load-independent
+            rgb = np.zeros((Bs, 12, cfg.clip.image_size, cfg.clip.image_size,
+                            3), np.uint8)
+            dep = np.zeros((Bs, 12, cfg.depth.input_size,
+                            cfg.depth.input_size, 1), np.float32)
+            for i, p in enumerate(batch):
+                rgb[i] = p.rgb
+                dep[i] = p.depth
 
-        # ---- dispatch 1: fused perception over the padded slots ----
-        wp = self.agent.perceive(rgb, dep)
-        wp_h = {k: _host(wp[k]) for k in
-                ("cand_valid", "cand_angles", "cand_distances")}
-        pano_embeds = _host(wp["pano_embeds"])
-        avg_pano = _host(wp["avg_pano_embeds"])
+            # ---- dispatch 1: fused perception over the padded slots ----
+            seq.next("serve.perceive")
+            wp = self.agent.perceive(rgb, dep)
+            wp_h = {k: _host(wp[k]) for k in
+                    ("cand_valid", "cand_angles", "cand_distances")}
+            pano_embeds = _host(wp["pano_embeds"])
+            avg_pano = _host(wp["avg_pano_embeds"])
 
-        # ---- host: topo-map updates + padded graph emission ----
-        G = cfg.planner.max_gmap_len
-        Dh = cfg.planner.hidden_size
-        emits = []
-        for i, p in enumerate(batch):
-            ses = p.session
-            valid = wp_h["cand_valid"][i]
-            tok_idx = np.flatnonzero(valid)
-            ses.prev_node = ses.gmap.update(
-                ses.prev_node, ses.stepk + 1, p.pos, p.ori,
-                avg_pano[i], wp_h["cand_angles"][i][valid],
-                wp_h["cand_distances"][i][valid],
-                pano_embeds[i][tok_idx], tok_idx, ses.stepk)
-            ses.stepk += 1
-        need = max(1 + p.session.gmap.num_nodes
-                   + len(p.session.gmap.ghosts) for p in batch)
-        G_step = pick_bucket(need, cfg.planner.gmap_len_buckets, G)
-        for p in batch:
-            ses = p.session
-            emits.append(ses.gmap.emit(ses.prev_node, p.pos, p.ori,
-                                       G_step, Dh))
-        pad_emit = {k: np.zeros_like(emits[0][k])
-                    for k in ("img_fts", "step_ids", "pos_fts", "mask",
-                              "visited", "pair_dists")}
-        gmap_batch = {
-            k: np.stack([e[k] for e in emits]
-                        + [pad_emit[k]] * (Bs - n))
-            for k in pad_emit}
-        L = cfg.il.max_text_len
-        txt_e = np.zeros((Bs, L, self.cfg.planner.hidden_size),
-                         np.float32)
-        txt_m = np.zeros((Bs, L), bool)
-        for i, p in enumerate(batch):
-            txt_e[i] = p.session.txt_embeds
-            txt_m[i] = p.session.txt_mask
-        # empty slots need one valid token / node for finite softmax
-        txt_m[n:, 0] = True
-        gmap_batch["mask"][n:, 0] = True
+            # ---- host: topo-map updates + padded graph emission ----
+            seq.next("serve.map")
+            G = cfg.planner.max_gmap_len
+            Dh = cfg.planner.hidden_size
+            emits = []
+            for i, p in enumerate(batch):
+                ses = p.session
+                valid = wp_h["cand_valid"][i]
+                tok_idx = np.flatnonzero(valid)
+                ses.prev_node = ses.gmap.update(
+                    ses.prev_node, ses.stepk + 1, p.pos, p.ori,
+                    avg_pano[i], wp_h["cand_angles"][i][valid],
+                    wp_h["cand_distances"][i][valid],
+                    pano_embeds[i][tok_idx], tok_idx, ses.stepk)
+                ses.stepk += 1
+            need = max(1 + p.session.gmap.num_nodes
+                       + len(p.session.gmap.ghosts) for p in batch)
+            G_step = pick_bucket(need, cfg.planner.gmap_len_buckets, G)
+            for p in batch:
+                ses = p.session
+                emits.append(ses.gmap.emit(ses.prev_node, p.pos, p.ori,
+                                           G_step, Dh))
+            pad_emit = {k: np.zeros_like(emits[0][k])
+                        for k in ("img_fts", "step_ids", "pos_fts", "mask",
+                                  "visited", "pair_dists")}
+            gmap_batch = {
+                k: np.stack([e[k] for e in emits]
+                            + [pad_emit[k]] * (Bs - n))
+                for k in pad_emit}
+            L = cfg.il.max_text_len
+            txt_e = np.zeros((Bs, L, self.cfg.planner.hidden_size),
+                             np.float32)
+            txt_m = np.zeros((Bs, L), bool)
+            for i, p in enumerate(batch):
+                txt_e[i] = p.session.txt_embeds
+                txt_m[i] = p.session.txt_mask
+            # empty slots need one valid token / node for finite softmax
+            txt_m[n:, 0] = True
+            gmap_batch["mask"][n:, 0] = True
 
-        # ---- dispatch 2: navigation scoring ----
-        nav = self.agent.score_navigation(txt_e, txt_m, gmap_batch)
-        logits = _host(nav["global_logits"])[:n]
-        probs = _softmax(logits)
+            # ---- dispatch 2: navigation scoring ----
+            seq.next("serve.score")
+            nav = self.agent.score_navigation(txt_e, txt_m, gmap_batch)
+            logits = _host(nav["global_logits"])[:n]
+            probs = _softmax(logits)
 
-        # ---- per-session action translation (shared with rollout) ----
-        for i, p in enumerate(batch):
-            ses = p.session
-            gmap = ses.gmap
-            gmap.node_stop_scores[ses.prev_node] = float(probs[i, 0])
-            action, new_prev, is_stop, _ = build_env_action(
-                cfg, gmap, emits[i], int(logits[i].argmax()),
-                ses.prev_node, force_stop=ses.stepk >= self.max_steps)
-            ses.prev_node = new_prev
-            # under the lock, and never clearing: a client that timed out
-            # after the claim has poisoned the session meanwhile
-            with self._lock:
-                ses.done = ses.done or is_stop
-                done = ses.done
-            ses.history.append({"step": ses.stepk,
-                                "pos": p.pos.tolist(),
-                                "stop_prob": float(probs[i, 0])})
-            p.result = {"action": action, "done": done,
-                        "stop_prob": float(probs[i, 0]),
-                        "num_nodes": gmap.num_nodes,
-                        "num_ghosts": len(gmap.ghosts)}
+            # ---- per-session action translation (shared with rollout) ----
+            seq.next("serve.translate")
+            for i, p in enumerate(batch):
+                ses = p.session
+                gmap = ses.gmap
+                gmap.node_stop_scores[ses.prev_node] = float(probs[i, 0])
+                action, new_prev, is_stop, _ = build_env_action(
+                    cfg, gmap, emits[i], int(logits[i].argmax()),
+                    ses.prev_node, force_stop=ses.stepk >= self.max_steps)
+                ses.prev_node = new_prev
+                # under the lock, and never clearing: a client that timed out
+                # after the claim has poisoned the session meanwhile
+                with self._lock:
+                    ses.done = ses.done or is_stop
+                    done = ses.done
+                ses.history.append({"step": ses.stepk,
+                                    "pos": p.pos.tolist(),
+                                    "stop_prob": float(probs[i, 0])})
+                p.result = {"action": action, "done": done,
+                            "stop_prob": float(probs[i, 0]),
+                            "num_nodes": gmap.num_nodes,
+                            "num_ghosts": len(gmap.ghosts)}
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -24,6 +24,7 @@ from etpnav_tpu_torch.config import ExperimentConfig
 from etpnav_tpu_torch.device import resolve_device
 from etpnav_tpu_torch.models import clip_vit, depth_resnet, planner, waypoint
 from etpnav_tpu_torch.ops.basic import init_weights
+from etpnav_tpu_torch.utils import logging as tracing
 
 
 class AgentParams(nn.Module):
@@ -175,20 +176,26 @@ class Agent:
 
     @torch.inference_mode()
     def encode_text(self, txt_ids, txt_masks) -> torch.Tensor:
-        return encode_text(self.params, self.cfg, self._t(txt_ids).long(),
-                           self._t(txt_masks).bool())
+        with tracing.span("agent.upload", device=self.device):
+            ids, mask = self._t(txt_ids).long(), self._t(txt_masks).bool()
+        return encode_text(self.params, self.cfg, ids, mask)
 
     @torch.inference_mode()
     def perceive(self, rgb, depth,
                  generator: Optional[torch.Generator] = None) -> dict:
         """With a generator (on this device), the train-time waypoint
         augmentation draws the candidates."""
-        return perceive(self.params, self.cfg, self._t(rgb), self._t(depth),
-                        generator, train_sampling=generator is not None)
+        with tracing.span("agent.upload", device=self.device):
+            rgb, depth = self._t(rgb), self._t(depth)
+        return perceive(self.params, self.cfg, rgb, depth, generator,
+                        train_sampling=generator is not None)
 
     @torch.inference_mode()
     def score_navigation(self, txt_embeds, txt_masks, gmap: dict) -> dict:
-        g = {k: self._t(v) for k, v in gmap.items()}
-        g["step_ids"] = g["step_ids"].long()
-        return score_navigation(self.params, self.cfg, self._t(txt_embeds),
-                                self._t(txt_masks).bool(), g)
+        with tracing.span("agent.upload", device=self.device):
+            g = {k: self._t(v) for k, v in gmap.items()}
+            g["step_ids"] = g["step_ids"].long()
+            txt_embeds = self._t(txt_embeds)
+            txt_masks = self._t(txt_masks).bool()
+        return score_navigation(self.params, self.cfg, txt_embeds,
+                                txt_masks, g)

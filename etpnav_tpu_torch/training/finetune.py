@@ -21,6 +21,12 @@ summed over dp; under mp the trained planner is split by the rules, and
 the rollout runs a whole copy of it on mp rank 0, whose record the mp
 peers receive.
 
+While tracing is on (`utils/logging.py`) an iteration is the spans
+`train.rollout` and `train.learn` (key: the iteration); inside the
+latter `learn.batch` (bucketing and upload), then `learn_step`'s
+device-timed `learn.forward`, `learn.backward` (with the mesh's
+gradient sum) and `learn.optimizer`.
+
 bf16 activations where `use_bf16` says so; fp32 parameters and optimizer
 state. Dropout draws come from the trainer's torch.Generator on its
 device; without one (`generator=None`) every dropout is off, which is the
@@ -55,6 +61,7 @@ from etpnav_tpu_torch.training.agent import (
 )
 from etpnav_tpu_torch.training.pipeline import PipelinedRollout
 from etpnav_tpu_torch.training.rollout import RolloutEngine, RolloutRecord
+from etpnav_tpu_torch.utils import logging as tracing
 from etpnav_tpu_torch.utils.logging import StepTimer, TensorboardLogger
 
 # optax.adamw's default decay; torch.optim.AdamW's default (1e-2) differs
@@ -226,15 +233,20 @@ def learn_step(planner_params: planner.PlannerParams,
     before the step (the unsplit ones then made mp rank 0's), and the
     returned loss is the global one."""
     optimizer.zero_grad(set_to_none=True)
-    total = None
-    if mesh is not None and mesh.dp > 1:
-        total = mesh.dp_sum(batch["step_valid"].sum())
-    loss = compute_il_loss(planner_params, cfg, batch, generator, total)
-    loss.backward()
-    if mesh is not None:
-        mesh.sync_grads(list(planner_params.parameters()))
-        loss = mesh.dp_sum(loss)
-    optimizer.step()
+    device = batch["step_valid"].device
+    with tracing.sequence() as seq:
+        seq.next("learn.forward", device=device)
+        total = None
+        if mesh is not None and mesh.dp > 1:
+            total = mesh.dp_sum(batch["step_valid"].sum())
+        loss = compute_il_loss(planner_params, cfg, batch, generator, total)
+        seq.next("learn.backward", device=device)
+        loss.backward()
+        if mesh is not None:
+            mesh.sync_grads(list(planner_params.parameters()))
+            loss = mesh.dp_sum(loss)
+        seq.next("learn.optimizer", device=device)
+        optimizer.step()
     return loss.detach()
 
 
@@ -447,7 +459,7 @@ class FinetuneTrainer:
         for _ in range(iters):
             ratio = il.sample_ratio ** (
                 self.iteration // il.decay_interval + 1)
-            with self.timer.phase("rollout"):
+            with self.timer.phase("rollout", key=self.iteration):
                 rec = None
                 if self.mesh is None or self.mesh.mp_index == 0:
                     rec = self.engine.run("train", sample_ratio=ratio,
@@ -455,15 +467,16 @@ class FinetuneTrainer:
                 if self.mesh is not None:
                     # the mp peers learn on mp rank 0's record, exactly
                     rec = self.mesh.broadcast_mp(rec)
-            with self.timer.phase("learn"):
-                brec = bucket_record(rec, il)
-                self.last_bucket = (brec.step_valid.shape[1],
-                                    brec.gmap_mask.shape[2])
-                self.bucket_counts[self.last_bucket] = \
-                    self.bucket_counts.get(self.last_bucket, 0) + 1
+            with self.timer.phase("learn", key=self.iteration):
+                with tracing.span("learn.batch"):
+                    brec = bucket_record(rec, il)
+                    self.last_bucket = (brec.step_valid.shape[1],
+                                        brec.gmap_mask.shape[2])
+                    self.bucket_counts[self.last_bucket] = \
+                        self.bucket_counts.get(self.last_bucket, 0) + 1
+                    batch = self.batch(brec)
                 loss = learn_step(self.train_planner, self.optimizer,
-                                  self.cfg, self.batch(brec), self.generator,
-                                  self.mesh)
+                                  self.cfg, batch, self.generator, self.mesh)
                 # the learn phase ends on the device: read it inside
                 loss = float(loss)
                 self._refresh_rollout_planner()

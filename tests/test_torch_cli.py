@@ -581,21 +581,13 @@ def test_tokenizers_match_jax(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_logging_utilities_match_jax(tmp_path, monkeypatch):
-    ours, theirs = tlog.RunningMeter("loss", 0.9), jlog.RunningMeter(
-        "loss", 0.9)
-    for v in (2.0, 1.0, 4.0, 0.5):
-        ours.update(v)
-        theirs.update(v)
-    assert ours.val == theirs.val
-
-    timer = tlog.StepTimer(window=2)
+    timer, theirs = tlog.StepTimer(window=2), jlog.StepTimer(window=2)
     for _ in range(3):
-        with timer.phase("rollout"):
-            pass
-    assert set(timer.means()) == {"rollout"}
+        for t in (timer, theirs):
+            with t.phase("rollout"):
+                pass
+    assert set(timer.means()) == set(theirs.means()) == {"rollout"}
     assert timer.last("rollout") >= 0.0
-    timer.reset()
-    assert timer.means() == {}
 
     tlog.TensorboardLogger(None).add_scalar("x", 1.0)    # writes nothing
     # without torch.utils.tensorboard the scalars go to JSONL
@@ -603,12 +595,12 @@ def test_logging_utilities_match_jax(tmp_path, monkeypatch):
     w = tlog.TensorboardLogger(str(tmp_path / "tb"))
     w.add_scalars({"loss/IL_loss": 1.5, "time/learn": 0.25}, step=3)
     w.close()
+    jw = jlog.TensorboardLogger(str(tmp_path / "jtb"))
+    jw.add_scalars({"loss/IL_loss": 1.5, "time/learn": 0.25}, step=3)
+    jw.close()
     rows = [json.loads(l) for l in
             (tmp_path / "tb" / "scalars.jsonl").read_text().splitlines()]
     assert rows == [{"tag": "loss/IL_loss", "value": 1.5, "step": 3},
                     {"tag": "time/learn", "value": 0.25, "step": 3}]
-
-    with tlog.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(4).sum()
-    assert prof is not None
-    assert (tmp_path / "trace" / "trace.json").exists()
+    assert (tmp_path / "jtb" / "scalars.jsonl").read_text() == \
+        (tmp_path / "tb" / "scalars.jsonl").read_text()

@@ -135,6 +135,7 @@ def test_http_episodes_concurrent(http_stack):
     assert stats["steps_served"] >= sum(len(r["results"])
                                         for r in out.values())
     assert stats["batches"] >= 1
+    assert 0 <= stats["deadline_batches"] <= stats["batches"]
 
 
 def test_http_error_mapping(http_stack):
