@@ -60,6 +60,16 @@ Phases, each reported on its own lines:
      (`DepthEncoderConfig.use_fused_gn`, `ClipConfig.use_fused_block`):
      54 K-GN and 11 K-PRENORM launches per perceive, K-ATT 5 per perceive;
      then perceive at B = 8, default and fused configuration in turns;
+     every served perceive replays the depth trunk's CUDA graph, which
+     warmup() captured;
+  4c. the depth trunk as CUDA graphs (`Agent`, `ops/cuda_graph.py`), in
+     the default and the fused configuration: at (96, 128, 128, 1) the
+     capture's output and each replay bit-equal to the eager
+     `encode_depth`, and again after new weights are copied into the
+     parameters in place; (12, 128, 128, 1) captures a second graph; the
+     agent's counters exact; K-GN 54 launches per replay (fused); a
+     whole perceive equal to the eager one, with the launch calls of
+     each from torch.profiler and their times;
   5. slice parity: `perceive` + `score_navigation` at full R2R width in
      fp32 on the card (kernels) against the CPU (plain versions);
   5b. the same for the fused configuration;
@@ -220,6 +230,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -1396,6 +1407,15 @@ def serve(card: str, cfg, params, counters) -> dict:
         server.shutdown()
     if stats["steps_served"] < target:
         raise AssertionError(f"slice: {stats['steps_served']} steps served")
+    # warmup() captured the depth trunk's graph; every served perceive
+    # replayed it
+    graphs = {k: stats[k] for k in ("depth_graph_replays",
+                                    "depth_eager_calls",
+                                    "depth_graph_captures")}
+    if graphs != {"depth_graph_replays": len(perceive_ms),
+                  "depth_eager_calls": 0, "depth_graph_captures": 1}:
+        raise AssertionError(f"slice: depth graph counters {graphs} for "
+                             f"{len(perceive_ms)} perceive calls")
     res = {"steps": stats["steps_served"], "batches": stats["batches"],
            "sessions": state["sessions"],
            "mean_occupancy": stats["mean_occupancy"], "wall_s": wall,
@@ -1685,6 +1705,15 @@ def train_phase(card: str, cfg, counters) -> dict:
                              f"{dict(calls)} and {iters} learn steps")
     if not np.isfinite(tr.logs["IL_loss"]).all():
         raise AssertionError(f"train: loss {tr.logs['IL_loss']}")
+    # the first rollout step captured the depth trunk's graph at the
+    # rollout's one shape; every later perceive replayed it
+    graphs = [sum(tr.logs[k]) for k in ("depth_graph_replays",
+                                        "depth_eager_calls",
+                                        "depth_graph_captures")]
+    if graphs != [calls["perceive"] - 1, 0, 1]:
+        raise AssertionError(f"train: depth graph replays, eager calls, "
+                             f"captures {graphs} for {calls['perceive']} "
+                             "perceive calls")
     moved = still = 0
     for n, p in planner.named_parameters():
         if not torch.equal(p, before[n]):
@@ -5294,6 +5323,22 @@ def check_counts(name: str, res: dict) -> None:
     log(f"slice {name}: launch counts exact for {calls}")
 
 
+def host_ms(fns: dict, rounds: int = 8) -> dict:
+    """p50 / min ms of each synchronised call of `fns`, in turns (A B B
+    A)."""
+    times = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: {"p50_ms": statistics.median(v), "min_ms": min(v),
+                "n": len(v)} for k, v in times.items()}
+
+
 def perceive_ab(card: str, cfgs: dict, params, rounds: int = 8) -> dict:
     """perceive at B = 8 (96 images) for each configuration, in turns
     (A B B A), the same observations; host clock around synchronised
@@ -5305,20 +5350,150 @@ def perceive_ab(card: str, cfgs: dict, params, rounds: int = 8) -> dict:
     H, Hd = c.clip.image_size, c.depth.input_size
     rgb = rng.integers(0, 256, (8, 12, H, H, 3), np.uint8)
     dep = rng.random((8, 12, Hd, Hd, 1), np.float32)
-    times = {k: [] for k in agents}
     for a in agents.values():
         a.perceive(rgb, dep)
-    order = list(agents) + list(agents)[::-1]
-    for _ in range(rounds):
-        for k in order:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            agents[k].perceive(rgb, dep)
-            torch.cuda.synchronize()
-            times[k].append((time.perf_counter() - t0) * 1e3)
-    res = {k: {"p50_ms": statistics.median(v), "min_ms": min(v),
-               "n": len(v)} for k, v in times.items()}
+    res = host_ms({k: functools.partial(a.perceive, rgb, dep)
+                   for k, a in agents.items()}, rounds)
     log(f"perceive A/B (B=8, in turns): {json.dumps(res)} [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the depth trunk of Agent.perceive as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def launch_calls(fn) -> dict:
+    """The CUDA launch calls one call of fn makes, from torch.profiler's
+    host-side runtime events: kernel launches (cudaLaunchKernel, its
+    variants, cuLaunchKernel) and graph launches (cudaGraphLaunch)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernel": 0, "graph": 0}
+    for e in prof.key_averages():
+        if "LaunchKernel" in e.key:
+            out["kernel"] += e.count
+        elif "GraphLaunch" in e.key:
+            out["graph"] += e.count
+    return out
+
+
+def depth_graph_phase(card: str, cfg, host_params) -> dict:
+    """Phase 4c: `Agent.perceive`'s depth trunk as CUDA graph replays, in
+    the default and the fused configuration. At (96, Hd, Hd, 1) the
+    capture's output and every replay equal the eager `encode_depth` bit
+    for bit; after new weights are copied into the parameters in place,
+    the replay equals eager with the new weights; (12, Hd, Hd, 1)
+    captures a second graph; the agent's counters read every capture and
+    replay; under `use_fused_gn` K-GN's launch counter rises by 54 per
+    replay and by 54 at a capture (the warm-up's launches; the capture
+    launches nothing). Then a whole perceive, graph against eager: equal
+    outputs, the launch calls of each (torch.profiler) and their times."""
+    from etpnav_tpu_torch.models import depth_resnet
+    from etpnav_tpu_torch.ops import fused_groupnorm
+    from etpnav_tpu_torch.training import agent as agent_mod
+    gn = fused_groupnorm.group_norm_launches
+    params = copy.deepcopy(host_params)
+    gen = torch.Generator().manual_seed(17)
+    H, Hd = cfg.clip.image_size, cfg.depth.input_size
+    rgb = torch.randint(0, 256, (8, 12, H, H, 3), generator=gen,
+                        dtype=torch.uint8).cuda()
+    dep = torch.rand(8, 12, Hd, Hd, 1, generator=gen).cuda()
+    d96 = dep.reshape(96, Hd, Hd, 1)
+    d12 = torch.rand(12, Hd, Hd, 1, generator=gen).cuda()
+    res = {}
+    for name, c in (("default", cfg), ("fused", fused_config(cfg))):
+        agent = agent_mod.Agent(c, params, device="cuda")
+        dtype = agent_mod._dtype(c)
+        per_gn = PER_CALL[name]["perceive"].get("group_norm_fused", 0)
+
+        @torch.inference_mode()
+        def eager(d):
+            return depth_resnet.encode_depth(agent.params.depth, c.depth, d,
+                                             dtype=dtype)
+
+        @torch.inference_mode()
+        def graphed(d):
+            return agent._depth_trunk(d)
+
+        def expect(stats: dict, what: str) -> None:
+            if agent.depth_graph_stats() != stats:
+                raise AssertionError(f"depth graph {name} {what}: "
+                                     f"{agent.depth_graph_stats()} != "
+                                     f"{stats}")
+
+        def same(got, want, what: str) -> None:
+            if got.shape != want.shape or got.stride() != want.stride() \
+                    or not torch.equal(got, want):
+                raise AssertionError(f"depth graph {name} {what}: not bit "
+                                     "equal to the eager trunk")
+
+        want = eager(d96)
+        n0 = gn.value
+        outs = [graphed(d96)]
+        sync()
+        n1 = gn.value
+        outs += [graphed(d96) for _ in range(3)]
+        sync()
+        n2 = gn.value
+        expect({"depth_graph_replays": 3, "depth_eager_calls": 0,
+                "depth_graph_captures": 1}, "at B = 96")
+        for i, got in enumerate(outs):
+            same(got, want, f"call {i} at B = 96")
+        if (n1 - n0, n2 - n1) != (per_gn, 3 * per_gn):
+            raise AssertionError(f"depth graph {name}: K-GN launches "
+                                 f"{n1 - n0} at the capture, {n2 - n1} in "
+                                 f"3 replays, want {per_gn}, {3 * per_gn}")
+        with torch.no_grad():
+            for t in agent.params.depth.parameters():
+                t.mul_(torch.rand(t.shape, generator=gen).to(t) + 0.5)
+        want_new = eager(d96)
+        if torch.equal(want_new, want):
+            raise AssertionError(f"depth graph {name}: new weights left "
+                                 "the trunk's output as it was")
+        same(graphed(d96), want_new, "after new weights in place")
+        want12 = eager(d12)
+        for i in range(2):
+            same(graphed(d12), want12, f"call {i} at B = 12")
+        expect({"depth_graph_replays": 5, "depth_eager_calls": 0,
+                "depth_graph_captures": 2}, "after B = 12")
+
+        # a whole perceive: the agent's (graph) against the module's
+        # (eager trunk), bit for bit, their launch calls and times
+        @torch.inference_mode()
+        def eager_perceive():
+            return agent_mod.perceive(agent.params, c, rgb, dep)
+
+        def graph_perceive():
+            return agent.perceive(rgb, dep)
+
+        got, ref = graph_perceive(), eager_perceive()
+        for k in ref:
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"depth graph {name}: perceive's {k} "
+                                     "differs from the eager perceive")
+        launches = {"perceive_eager": launch_calls(eager_perceive),
+                    "perceive_graph": launch_calls(graph_perceive),
+                    "trunk_eager": launch_calls(lambda: eager(d96)),
+                    "trunk_graph": launch_calls(lambda: graphed(d96))}
+        if launches["trunk_graph"]["graph"] != 1 or \
+                launches["perceive_graph"]["graph"] != 1:
+            raise AssertionError(f"depth graph {name}: graph launches "
+                                 f"{launches}")
+        times = host_ms({"perceive_eager": eager_perceive,
+                         "perceive_graph": graph_perceive,
+                         "trunk_eager": lambda: eager(d96),
+                         "trunk_graph": lambda: graphed(d96)})
+        res[name] = {"launches": launches, "times": times,
+                     "stats": agent.depth_graph_stats(),
+                     "gn_per_replay": (n2 - n1) // 3}
+        log(f"depth graph {name}: {json.dumps(res[name])} [{card}]")
+        del agent, outs, got, ref
+        torch.cuda.empty_cache()
     return res
 
 
@@ -5434,6 +5609,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     log(f"phase 4b done at {time.perf_counter() - T0:.0f} s")
+    # phase 4c
+    depth_graph = depth_graph_phase(card, cfg, host_params)
+    log(f"phase 4c done at {time.perf_counter() - T0:.0f} s")
     # phase 5
     cfg32 = r2r_config(planner=dataclasses.replace(cfg.planner,
                                                   use_bf16=False))
@@ -5700,6 +5878,16 @@ def main() -> int:
     ]
     log(f"perceive p50 default {ab['default']['p50_ms']:.2f} ms, fused "
         f"{ab['fused']['p50_ms']:.2f} ms (B=8, in turns) [{card}]")
+    for name, r in depth_graph.items():
+        t, n = r["times"], r["launches"]
+        log(f"depth graph {name} (B=8): perceive p50 eager "
+            f"{t['perceive_eager']['p50_ms']:.2f} ms, graph "
+            f"{t['perceive_graph']['p50_ms']:.2f} ms; trunk eager "
+            f"{t['trunk_eager']['p50_ms']:.2f} ms, graph "
+            f"{t['trunk_graph']['p50_ms']:.2f} ms; kernel launch calls per "
+            f"perceive {n['perceive_eager']['kernel']} eager, "
+            f"{n['perceive_graph']['kernel']} + "
+            f"{n['perceive_graph']['graph']} graph [{card}]")
     ls = train_res["learn_step"]
     log(f"learn step p50 (T20, G64) {ls['T20_G64']['p50_ms']:.2f} ms, "
         f"(T20, G96) {ls['T20_G96']['p50_ms']:.2f} ms; peak "

@@ -11,6 +11,8 @@ at once.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,6 +121,10 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+# the launches this thread counts inside `recording_launches()`
+_recording = threading.local()
+
+
 class LaunchCounter:
     """A thread-safe count of kernel launches or plain-version calls."""
 
@@ -126,9 +132,12 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
+        counts = getattr(_recording, "counts", None)
+        if counts is not None:
+            counts[self] += n
 
     def reset(self) -> None:
         with self._lock:
@@ -137,6 +146,26 @@ class LaunchCounter:
     @property
     def value(self) -> int:
         return self._n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields a `collections.Counter` of the launches this thread counts
+    inside the block, per counter (other threads' launches are not in
+    it): what a CUDA graph's capture records, which `add_launches` adds
+    again at each replay."""
+    outer = getattr(_recording, "counts", None)
+    counts = _recording.counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _recording.counts = outer
+
+
+def add_launches(counts: collections.Counter, times: int = 1) -> None:
+    """Adds `times` x each count of `counts` to its counter."""
+    for counter, n in counts.items():
+        counter.add(n * times)
 
 
 # the words of csrc/dense.cuh's barrier fault record

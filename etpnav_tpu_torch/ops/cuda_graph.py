@@ -1,0 +1,101 @@
+"""One CUDA graph per input signature of a function of one tensor.
+
+`CapturedGraphs(fn)` runs `fn(x)` for a CUDA tensor `x` as the replay
+of a graph captured at the first call with x's signature (device,
+shape, strides, dtype). A CPU tensor runs `fn` eagerly, as does a call
+made while the caller's stream is itself being captured: the enclosing
+graph then takes fn's kernels. A capture that fails raises.
+
+The first call of a signature runs `fn` once on a side stream (its
+kernels built, cuDNN's plans chosen; that run's result is the call's
+output), then captures `fn` on that stream into the graph's own memory
+pool with `capture_error_mode="thread_local"`, so that other threads'
+CUDA calls go on meanwhile. A replay copies x into the graph's static
+input, replays, and returns a copy of the static output: no caller
+holds the graph's buffers. The graphs and their pools are freed with
+this object.
+
+`fn` reads its weights from the tensors it closes over, inside the
+captured work: weights copied into those tensors in place are what the
+next replay reads. The launch counters of `ops/cuda_build.py` stay true:
+a capture launches nothing, so what it counted is taken back, and each
+replay counts it again.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict
+
+import torch
+
+from etpnav_tpu_torch.ops import cuda_build
+
+
+class _Graph:
+    __slots__ = ("graph", "x", "out", "launches", "done")
+
+
+class CapturedGraphs:
+    """`fn` as CUDA graph replays, one graph per input signature (see
+    the module's docstring). `replays`, `captures` and `eager_calls`
+    (calls on a CUDA tensor that ran `fn` eagerly) count the calls."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        self.fn = fn
+        self._graphs: Dict[tuple, _Graph] = {}
+        # one caller at a time owns a graph's static buffers
+        self._lock = threading.Lock()
+        self.replays = self.captures = self.eager_calls = 0
+
+    @staticmethod
+    def engages(x: torch.Tensor) -> bool:
+        """Whether a call on `x` captures or replays a graph."""
+        return x.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.is_cuda:
+            return self.fn(x)
+        if torch.cuda.is_current_stream_capturing():
+            with self._lock:
+                self.eager_calls += 1
+            return self.fn(x)
+        key = (x.device, tuple(x.shape), x.stride(), x.dtype)
+        with self._lock, torch.cuda.device(x.device):
+            g = self._graphs.get(key)
+            if g is None:
+                out, self._graphs[key] = self._capture(x)
+                self.captures += 1
+                return out
+            stream = torch.cuda.current_stream()
+            # the last caller's copy-out is done, whatever its stream
+            stream.wait_event(g.done)
+            g.x.copy_(x)
+            g.graph.replay()
+            out = g.out.clone()
+            g.done.record(stream)
+            self.replays += 1
+        cuda_build.add_launches(g.launches)
+        return out
+
+    def _capture(self, x: torch.Tensor):
+        """Warm up and capture `fn` for x's signature: (the warm-up's
+        output, the graph)."""
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        g = _Graph()
+        g.x = torch.empty_like(x)
+        g.x.copy_(x)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(g.x)
+        g.graph = torch.cuda.CUDAGraph()
+        with cuda_build.recording_launches() as g.launches:
+            with torch.cuda.graph(g.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                g.out = self.fn(g.x)
+        cuda_build.add_launches(g.launches, -1)
+        cur.wait_stream(side)
+        out.record_stream(cur)
+        g.done = torch.cuda.Event()
+        return out, g

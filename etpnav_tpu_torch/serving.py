@@ -129,9 +129,10 @@ class NavServer:
         """Run every device program once before taking traffic: the text
         encoder, perception, and one navigation-scoring call per
         gmap-length bucket (plus the full length). The first call builds
-        the CUDA kernels and grows the allocator's pools; calling this at
-        deploy time keeps both out of live request latency. Returns the
-        number of programs warmed."""
+        the CUDA kernels and grows the allocator's pools, and perception
+        captures the depth trunk's CUDA graph at the static batch;
+        calling this at deploy time keeps all of it out of live request
+        latency. Returns the number of programs warmed."""
         cfg = self.cfg
         Bs = self.max_batch
         L = cfg.il.max_text_len
@@ -263,7 +264,9 @@ class NavServer:
         always padded to max_batch), live sessions, and current queue
         depth. Counters reflect SUCCESSFUL batches only — a failing
         dispatch poisons its sessions and increments failed_batches
-        instead."""
+        instead. The agent's depth-trunk counters
+        (`Agent.depth_graph_stats`) come with them: depth_graph_replays,
+        depth_eager_calls, depth_graph_captures."""
         with self._lock:
             batches = self._batches
             steps = self._steps_served
@@ -275,7 +278,8 @@ class NavServer:
                 "failed_batches": failed, "deadline_batches": deadline,
                 "mean_occupancy": round(occ, 4),
                 "live_sessions": live,
-                "queue_depth": self._queue.qsize()}
+                "queue_depth": self._queue.qsize(),
+                **self.agent.depth_graph_stats()}
 
     def close_session(self, sid: int) -> dict:
         with self._lock:

@@ -9,12 +9,16 @@ the three device programs of a navigation step, in eager PyTorch.
 The pano token layout is fixed: K candidate slots then 12 view slots,
 with validity masks. `Agent` takes the place of `JittedAgent`: it holds
 the parameters on one device, accepts numpy or tensors, and returns
-tensors on that device.
+tensors on that device. On a CUDA device its `perceive` runs the depth
+trunk (`depth_resnet.encode_depth`, 53 convolutions and GroupNorms) as
+the replay of a CUDA graph per input signature (`ops/cuda_graph.py`),
+captured at the signature's first call: one graph launch where the
+eager trunk makes 1,328 kernel launches (R2R width, 96 images).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ from etpnav_tpu_torch.config import ExperimentConfig
 from etpnav_tpu_torch.device import resolve_device
 from etpnav_tpu_torch.models import clip_vit, depth_resnet, planner, waypoint
 from etpnav_tpu_torch.ops.basic import init_weights
+from etpnav_tpu_torch.ops.cuda_graph import CapturedGraphs
 from etpnav_tpu_torch.utils import logging as tracing
 
 
@@ -62,12 +67,15 @@ def encode_text(params: AgentParams, cfg: ExperimentConfig,
 def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
                     rgb: torch.Tensor, depth: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    train_sampling: bool = False) -> dict:
+                    train_sampling: bool = False,
+                    depth_trunk: Optional[Callable] = None) -> dict:
     """rgb (B, 12, H, W, 3) uint8, counter-clockwise views, view 0
     forward; depth (B, 12, Hd, Wd, 1) float in [0,1] or uint16. Returns
     pano token features + K candidate slots + the heatmap. With
     `train_sampling`, the candidates are re-drawn inside their sectors
-    from `generator` (the waypoint augmentation)."""
+    from `generator` (the waypoint augmentation). `depth_trunk`, given,
+    maps the (B*12, Hd, Wd, 1) fp32 depth to what `encode_depth` returns
+    for it (the `Agent`'s CUDA graphs)."""
     wcfg = cfg.waypoint
     B, V = rgb.shape[:2]
     dtype = _dtype(cfg)
@@ -78,9 +86,12 @@ def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
     rgb_feats = clip_vit.encode_image_uint8(
         params.clip, cfg.clip, rgb.reshape((B * V,) + rgb.shape[2:]),
         dtype=dtype).reshape(B, V, -1)                       # (B,12,512)
-    dep_spatial = depth_resnet.encode_depth(
-        params.depth, cfg.depth, depth.reshape((B * V,) + depth.shape[2:]),
-        dtype=dtype)                                         # (B*V,s,s,C)
+    depth = depth.reshape((B * V,) + depth.shape[2:])
+    if depth_trunk is None:
+        dep_spatial = depth_resnet.encode_depth(params.depth, cfg.depth,
+                                                depth, dtype=dtype)
+    else:
+        dep_spatial = depth_trunk(depth)                     # (B*V,s,s,C)
     s, c = dep_spatial.shape[1], dep_spatial.shape[-1]
     # the waypoint predictor reads CHW-flattened depth features in
     # clockwise view order (Policy_ViewSelection_ETP.py:179-205)
@@ -144,11 +155,13 @@ def score_navigation(params: AgentParams, cfg: ExperimentConfig,
 def perceive(params: AgentParams, cfg: ExperimentConfig, rgb: torch.Tensor,
              depth: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             train_sampling: bool = False) -> dict:
+             train_sampling: bool = False,
+             depth_trunk: Optional[Callable] = None) -> dict:
     """The per-step perception path: frozen encoders + waypoint heatmap +
     NMS candidates (re-drawn with `train_sampling`) + pano-token
     embedding."""
-    wp = encode_panorama(params, cfg, rgb, depth, generator, train_sampling)
+    wp = encode_panorama(params, cfg, rgb, depth, generator, train_sampling,
+                         depth_trunk)
     wp.update(embed_panorama(params, cfg, {
         k: wp[k] for k in ("rgb_fts", "dep_fts", "loc_fts", "nav_types",
                            "view_masks")}))
@@ -159,7 +172,11 @@ class Agent:
     """The agent's parameters on one device and its three programs.
 
     Runs on the GPU unless `device="cpu"` is passed; with no GPU and no
-    `device="cpu"` it raises. Inputs may be numpy arrays or tensors."""
+    `device="cpu"` it raises. Inputs may be numpy arrays or tensors.
+    `depth_graph_stats()` counts the depth trunk's graph replays and
+    captures, and its eager calls on a CUDA device (made only inside
+    an enclosing capture); each call is the span `agent.depth`
+    (device-timed, with `graph` True where it replayed or captured)."""
 
     def __init__(self, cfg: ExperimentConfig,
                  params: Optional[AgentParams] = None, device="cuda"):
@@ -168,6 +185,10 @@ class Agent:
         if params is None:
             params = init_agent_params(cfg, cfg.seed)
         self.params = params.to(self.device).eval().requires_grad_(False)
+        depth_p, depth_cfg, dtype = self.params.depth, cfg.depth, _dtype(cfg)
+        self._depth_graphs = CapturedGraphs(
+            lambda d: depth_resnet.encode_depth(depth_p, depth_cfg, d,
+                                                dtype=dtype))
 
     def _t(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -188,7 +209,19 @@ class Agent:
         with tracing.span("agent.upload", device=self.device):
             rgb, depth = self._t(rgb), self._t(depth)
         return perceive(self.params, self.cfg, rgb, depth, generator,
-                        train_sampling=generator is not None)
+                        train_sampling=generator is not None,
+                        depth_trunk=self._depth_trunk)
+
+    def _depth_trunk(self, depth: torch.Tensor) -> torch.Tensor:
+        with tracing.span("agent.depth", device=self.device,
+                          graph=CapturedGraphs.engages(depth)):
+            return self._depth_graphs(depth)
+
+    def depth_graph_stats(self) -> dict:
+        g = self._depth_graphs
+        return {"depth_graph_replays": g.replays,
+                "depth_eager_calls": g.eager_calls,
+                "depth_graph_captures": g.captures}
 
     @torch.inference_mode()
     def score_navigation(self, txt_embeds, txt_masks, gmap: dict) -> dict:

@@ -452,13 +452,15 @@ class FinetuneTrainer:
               gt_paths: Optional[dict] = None,
               save_every: Optional[int] = None) -> Dict[str, float]:
         """`iters` rollout + learn iterations; returns the means of the
-        loss and of the two phases' seconds over them. save_every:
+        loss, of the two phases' seconds and of the iteration's depth
+        trunk counts (`Agent.depth_graph_stats`) over them. save_every:
         checkpoint to self.ckpt_dir every N iterations."""
         il = self.cfg.il
         iters = iters if iters is not None else il.iters
         for _ in range(iters):
             ratio = il.sample_ratio ** (
                 self.iteration // il.decay_interval + 1)
+            graphs0 = self.agent.depth_graph_stats()
             with self.timer.phase("rollout", key=self.iteration):
                 rec = None
                 if self.mesh is None or self.mesh.mp_index == 0:
@@ -484,6 +486,8 @@ class FinetuneTrainer:
             self.logs["IL_loss"].append(loss)
             self.logs["rollout_s"].append(self.timer.last("rollout"))
             self.logs["learn_s"].append(self.timer.last("learn"))
+            for k, n in self.agent.depth_graph_stats().items():
+                self.logs[k].append(n - graphs0[k])
             self.writer.add_scalar("loss/IL_loss", loss, self.iteration)
             if self.iteration % 50 == 0:
                 self.writer.add_scalars(

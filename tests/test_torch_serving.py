@@ -238,6 +238,9 @@ def test_server_stats(fresh_server):
     assert 0 < st["mean_occupancy"] <= 1.0
     assert st["live_sessions"] == (0 if res["done"] else 1)
     assert st["queue_depth"] == 0
+    # the CPU runs the depth trunk eagerly: no graph, no eager card call
+    assert (st["depth_graph_replays"], st["depth_eager_calls"],
+            st["depth_graph_captures"]) == (0, 0, 0)
 
 
 def test_server_stats_count_failures_separately(fresh_server):

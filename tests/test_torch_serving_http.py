@@ -136,6 +136,8 @@ def test_http_episodes_concurrent(http_stack):
                                         for r in out.values())
     assert stats["batches"] >= 1
     assert 0 <= stats["deadline_batches"] <= stats["batches"]
+    assert (stats["depth_graph_replays"], stats["depth_eager_calls"],
+            stats["depth_graph_captures"]) == (0, 0, 0)
 
 
 def test_http_error_mapping(http_stack):

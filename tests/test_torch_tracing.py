@@ -281,6 +281,11 @@ def test_served_spans_line_up_under_concurrency(agent):
     assert {byid[u["parent"]]["name"] for u in ups} == {
         "serve.perceive", "serve.score", "serve.encode_text"}
     assert all(s["device_ms"] is None for s in spans)
+    # one depth trunk per perceive, eager on the CPU
+    depth = _named(spans, "agent.depth")
+    assert sorted(byid[d["parent"]]["key"] for d in depth) == sorted(batches)
+    assert all(byid[d["parent"]]["name"] == "serve.perceive"
+               and d["graph"] is False for d in depth)
 
 
 def test_deadline_batches_counts_only_batches_the_wait_closed(agent):
@@ -334,6 +339,10 @@ def test_training_same_with_tracing_and_spans_nest():
                               on.params.named_parameters()):
         assert torch.equal(a, b), k
     assert on.logs["rollout_s"] and on.logs["learn_s"]
+    # the iteration's depth trunk counts, all 0 on the CPU
+    for k in ("depth_graph_replays", "depth_eager_calls",
+              "depth_graph_captures"):
+        assert on.logs[k] == off.logs[k] == [0], k
 
     spans = tracing.export()["spans"]
     byid = _by_id(spans)
@@ -360,6 +369,11 @@ def test_training_same_with_tracing_and_spans_nest():
         "rollout.env", "rollout.record", "rollout.text"]
     for k, ss in steps.items():
         assert sorted(s["name"] for s in ss) == sorted(ROLLOUT), k
+    # one depth trunk inside each step's rollout.perceive
+    depth = _named(spans, "agent.depth")
+    assert sorted(byid[d["parent"]]["key"][1] for d in depth) == sorted(steps)
+    assert all(byid[d["parent"]]["name"] == "rollout.perceive"
+               and d["graph"] is False for d in depth)
     rollout = sorted((s for s in spans if s["name"].startswith("rollout.")),
                      key=lambda s: s["t0"])
     for x, y in zip(rollout, rollout[1:]):
