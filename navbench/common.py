@@ -4,12 +4,13 @@ chip's peaks, percentiles, the device record and the result line."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import os
 import subprocess
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 # NVIDIA H100 SXM data sheet, dense: FLOP/s by precision, HBM bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -18,10 +19,39 @@ HBM_BYTES_PER_S = 3.35e12
 # top-level module names that may not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "etpnav_tpu")
 
+# the modules a configuration file may name under these keys, the module
+# taken where it names none, and the names the harness calls in them
+# (`navbench/compare.py` and `navbench/work/model.py` say how)
+MODULES = {"reference": ("navbench.reference.model", ("Ref", "Drop")),
+           "work": ("navbench.work.model",
+                    ("perceive", "nav", "text", "train_step"))}
+
+
+def modules(config: dict) -> tuple:
+    """(reference, work): the modules the configuration file names under
+    `reference` and `work`, navbench's ETPNav ones where it names none.
+    Raises ValueError, naming the module, where one does not import or
+    lacks a name the harness calls."""
+    out = []
+    for key, (default, names) in MODULES.items():
+        name = config.get(key, default)
+        try:
+            mod = importlib.import_module(name)
+        except ImportError as e:
+            raise ValueError(f"the configuration's {key} module {name!r} "
+                             f"does not import: {e}") from e
+        lacks = [n for n in names if not hasattr(mod, n)]
+        if lacks:
+            raise ValueError(f"the configuration's {key} module {name!r} "
+                             f"lacks {lacks}")
+        out.append(mod)
+    return tuple(out)
+
 
 @dataclasses.dataclass
 class Context:
-    """One run of one cell."""
+    """One run of one cell. `reference` and `work` are the modules the
+    configuration file names (`modules`)."""
     root: str                 # the checkout's root
     cell: dict                # the BENCHMARK.json workload entry
     config: dict              # the configuration file
@@ -32,6 +62,11 @@ class Context:
     trace: bool
     t_start: float            # perf_counter at process start
     device: str = "cuda"
+    reference: Any = dataclasses.field(init=False)
+    work: Any = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.reference, self.work = modules(self.config)
 
 
 def percentile(values: Sequence[float], q: float) -> float:

@@ -1,7 +1,22 @@
 """The comparisons that decide `correct`: what the timed path produced,
-held against the plain reference (`navbench/reference/model.py`) run
-once the window has closed, the program's state freed, on the same
-inputs and the same seeded weights.
+held against the plain reference run once the window has closed, the
+program's state freed, on the same inputs and the same seeded weights.
+
+The reference is the module the configuration file names under
+`reference` (`common.modules`; by default `navbench/reference/model.py`),
+which the caller passes in. It provides:
+
+- `Ref(P, m, mode="fp32")`: the model over the weights `P` (the
+  program's parameter names) and the file's `model` block `m`;
+  `mode="fp8"` is the control. `compare` calls its `encode_text(ids,
+  mask)`, `perceive(rgb, depth, slots=None)`, `score(txt, txt_mask,
+  img_fts, step_ids, pos_fts, mask, visited, pair, embeds=True)` and
+  `il_loss(batch, drop, ml_weight, rows)`;
+- `Drop(generator=None)`: the dropout stream `il_loss` draws from.
+
+A new architecture's module subclasses `navbench.reference.model.Ref`
+and overrides what differs. `nms_slots` and `strict_fp32` hold for every
+architecture and come from `navbench/reference/model.py`.
 
 Every number is a widest gap, so larger is worse; each cell's limits are
 in `navbench/limits/<cell>.json`. `other` ("fp8") puts the reference in
@@ -18,7 +33,7 @@ import numpy as np
 import torch
 
 from navbench import weights
-from navbench.reference.model import Drop, Ref, nms_slots, strict_fp32
+from navbench.reference.model import nms_slots, strict_fp32
 
 
 def _np(x):
@@ -84,12 +99,13 @@ def _fit(tokens: np.ndarray, L: int, pad: int) -> np.ndarray:
     return out
 
 
-def serve_readings(records: list, tokens: Dict[int, np.ndarray],
-                   table, m: dict, weight_seed: int, device, L: int,
-                   pad: int, other: Optional[str] = None) -> dict:
-    """The serving numbers over the kept batches. Without `other` they
-    judge the program's outputs; with `other="fp8"` the control's, made
-    from the same inputs.
+def serve_readings(reference, records: list,
+                   tokens: Dict[int, np.ndarray], table, m: dict,
+                   weight_seed: int, device, L: int, pad: int,
+                   other: Optional[str] = None) -> dict:
+    """The serving numbers over the kept batches, by the reference module
+    `reference`. Without `other` they judge the program's outputs; with
+    `other="fp8"` the control's, made from the same inputs.
 
     - txt_rel:      each row's text memory over its valid tokens
                     (relative L2; the widest gap there is set by a few
@@ -114,8 +130,8 @@ def serve_readings(records: list, tokens: Dict[int, np.ndarray],
                     sample, so it is not one of the numbers."""
     strict_fp32()
     P = weights.make_weights(table, weight_seed, device)
-    ref = Ref(P, m)
-    ctl = Ref(P, m, other) if other else None
+    ref = reference.Ref(P, m)
+    ctl = reference.Ref(P, m, other) if other else None
     w = m["waypoint"]
     K, sigma = w["max_predictions"], tuple(w["nms_sigma"])
     out = {"txt_rel": 0.0, "heatmap_rel": 0.0, "pano_rel": 0.0,
@@ -224,18 +240,18 @@ def leaf_gap(got: Dict[str, float], want: Dict[str, float],
                for k in names)
 
 
-def train_reference(batches: list, rollout: list, table, m: dict,
-                    weight_seed: int, dropout_seed: int, device,
+def train_reference(reference, batches: list, rollout: list, table,
+                    m: dict, weight_seed: int, dropout_seed: int, device,
                     mode: str = "fp32", half: bool = False,
                     window: Optional[dict] = None) -> dict:
-    """The reference's learn steps over the program's first three
-    recorded batches, from the seeded weights, with the trainer's
-    dropout stream, AdamW as configured: each step's loss, the first
-    gradient's norm per planner leaf, each leaf's change after the
-    steps; and, for the first rollout's scoring, the graph embeddings of
-    each of its steps from the initial weights, on the graph tensors the
-    rollout's host map made, with the reference's own text memory of the
-    recorded instructions. `half` leaves out the
+    """The learn steps of the reference module `reference` over the
+    program's first three recorded batches, from the seeded weights,
+    with the trainer's dropout stream, AdamW as configured: each step's
+    loss, the first gradient's norm per planner leaf, each leaf's change
+    after the steps; and, for the first rollout's scoring, the graph
+    embeddings of each of its steps from the initial weights, on the
+    graph tensors the rollout's host map made, with the reference's own
+    text memory of the recorded instructions. `half` leaves out the
     second half of each batch's rows (a fault reading). AdamW as the
     configuration states it: betas 0.9 / 0.999, eps 1e-8, decay 1e-4
     (optax.adamw's defaults, which the trainer takes). With `window`,
@@ -250,7 +266,7 @@ def train_reference(batches: list, rollout: list, table, m: dict,
     if il["fix_pano_embedding"]:
         frozen |= {"planner.img_embeddings."}
     train = [k for k in names if not any(k.startswith(f) for f in frozen)]
-    ref = Ref(P, m, mode)
+    ref = reference.Ref(P, m, mode)
     out = {"rollout_embeds": []}
     with torch.no_grad():
         b0 = _to_batch(batches[0], device)
@@ -268,7 +284,8 @@ def train_reference(batches: list, rollout: list, table, m: dict,
         P[k].requires_grad_(True)
     adam = {k: (torch.zeros_like(P[k]), torch.zeros_like(P[k]))
             for k in train}
-    drop = Drop(torch.Generator(device=device).manual_seed(dropout_seed))
+    drop = reference.Drop(
+        torch.Generator(device=device).manual_seed(dropout_seed))
     losses = []
     for step, rec in enumerate(batches):
         b = _to_batch(rec, device)
@@ -292,26 +309,27 @@ def train_reference(batches: list, rollout: list, table, m: dict,
         for k in train:
             P[k].requires_grad_(False)
             P[k].grad = None
-        out["window"] = window_reference(window, P, m, train, device, mode,
-                                         half)
+        out["window"] = window_reference(reference, window, P, m, train,
+                                         device, mode, half)
     return out
 
 
-def window_reference(win: dict, P: dict, m: dict, train: list, device,
-                     mode: str = "fp32", half: bool = False) -> dict:
-    """The reference over one iteration of the window, from the trained
-    leaves as the program held them when it started (`win["params"]`:
-    the program's state, which the reference can only follow; the start
-    is checked by `train_reference`'s own steps): the graph embeddings of
-    its rollout's steps on the rollout's graph tensors, with the
-    reference's text memory of the iteration's instructions, and its
-    learn step's loss and each leaf's gradient norm, with the dropout
-    stream from the state the program's generator held."""
+def window_reference(reference, win: dict, P: dict, m: dict, train: list,
+                     device, mode: str = "fp32", half: bool = False) -> dict:
+    """The reference module `reference` over one iteration of the
+    window, from the trained leaves as the program held them when it
+    started (`win["params"]`: the program's state, which the reference
+    can only follow; the start is checked by `train_reference`'s own
+    steps): the graph embeddings of its rollout's steps on the rollout's
+    graph tensors, with the reference's text memory of the iteration's
+    instructions, and its learn step's loss and each leaf's gradient
+    norm, with the dropout stream from the state the program's generator
+    held."""
     Pw = dict(P)
     for k in train:
         Pw[k] = win["params"][k].detach().float().clone().requires_grad_(
             True)
-    ref = Ref(Pw, m, mode)
+    ref = reference.Ref(Pw, m, mode)
     b = _to_batch(win["batch"], device)
     out = {"rollout_embeds": []}
     with torch.no_grad():
@@ -328,7 +346,7 @@ def window_reference(win: dict, P: dict, m: dict, train: list, device,
     gen.set_state(win["dropout"])
     rows = (torch.arange(b["teacher"].shape[0] // 2, device=device)
             if half else None)
-    loss = ref.il_loss(b, Drop(gen), m["il"]["ml_weight"], rows)
+    loss = ref.il_loss(b, reference.Drop(gen), m["il"]["ml_weight"], rows)
     loss.backward()
     out["loss"] = loss.item()
     out["grad"] = {k: float(Pw[k].grad.norm()) if Pw[k].grad is not None

@@ -28,7 +28,6 @@ import torch
 
 from navbench import common, compare, probe, program, trace
 from navbench.instructions import Cycle, Instructions
-from navbench.work import model as work
 
 
 def _keep(cur: dict) -> dict:
@@ -46,9 +45,10 @@ class Recorder:
     the seed, uniform over the window whatever its rate. Each kept
     batch's program outputs are copied when it is kept, right after its
     `_process` returns; its observations are the clients' own pool
-    arrays, which are read-only. Counts the window's model work."""
+    arrays, which are read-only. Counts the window's model work by the
+    FLOP-count module `work`."""
 
-    def __init__(self, server, m: dict, rng, max_keep: int):
+    def __init__(self, server, m: dict, work, rng, max_keep: int):
         self.m = m
         self.rng, self.max_keep = rng, max_keep
         self.active = False
@@ -177,7 +177,7 @@ def setup(ctx, device) -> dict:
     wseed = probe.settle_weights(ctx, server, table, rgb, dep, device,
                                  max(tr["episode_steps"]))
     m = ctx.config["model"]
-    rec = Recorder(server, m,
+    rec = Recorder(server, m, ctx.work,
                    np.random.default_rng(common.sub_seed(ctx.seed, 3)),
                    tr["keep_batches"])
     if device.type == "cuda":
@@ -313,7 +313,7 @@ def run(ctx, others=()) -> dict:
             "t0": w["t0"], "t_end": w["t_end"],
             "stats": w["stats"], "max_batch": ctx.traffic["params"][
                 "max_batch"],
-            "work": dict(rec.work + work.text(
+            "work": dict(rec.work + ctx.work.text(
                 st["m"], w["sessions"], st["cfg"].il.max_text_len)),
             "batches": rec.batches,
             "steps": n, "attention_bound_s": attn.bound_s,
@@ -327,7 +327,7 @@ def run(ctx, others=()) -> dict:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    args = (records, tokens, table, m, wseed, device,
+    args = (ctx.reference, records, tokens, table, m, wseed, device,
             cfg.il.max_text_len, cfg.planner.pad_token_id)
     out["readings"] = compare.serve_readings(*args)
     out["others"] = {mode: compare.serve_readings(*args, other=mode)

@@ -34,7 +34,6 @@ import torch
 
 from navbench import common, compare, probe, program, trace
 from navbench.instructions import Cycle, Instructions
-from navbench.work import model as work
 
 
 def episodes(ctx, cfg) -> list:
@@ -321,7 +320,7 @@ def window(ctx, st: dict, spans=None, attn=None) -> dict:
         it += 1
         T, G = trainer.last_bucket
         buckets.append((T, G))
-        wk += work.train_step(m, n, T, G, cfg.il.max_text_len)
+        wk += ctx.work.train_step(m, n, T, G, cfg.il.max_text_len)
         if time.perf_counter() - t0 >= ctx.seconds:
             break
     t_end = time.perf_counter()
@@ -335,9 +334,11 @@ def window(ctx, st: dict, spans=None, attn=None) -> dict:
             "work": wk}
 
 
-def rollout_work(m: dict, steps: int, envs: int, L: int, G: int) -> Counter:
-    """A rollout's forward passes: perceive and scoring (at the record's
-    G) for every live step, the text once per episode."""
+def rollout_work(work, m: dict, steps: int, envs: int, L: int,
+                 G: int) -> Counter:
+    """A rollout's forward passes by the FLOP-count module `work`:
+    perceive and scoring (at the record's G) for every live step, the
+    text once per episode."""
     return (work.perceive(m, steps) + work.nav(m, steps, G, L)
             + work.text(m, envs, L))
 
@@ -385,7 +386,7 @@ def run(ctx, others=()) -> dict:
     cfg, m = st["cfg"], st["m"]
     wk = w["work"]
     for s in steps:
-        wk += rollout_work(m, s, st["n"], cfg.il.max_text_len,
+        wk += rollout_work(ctx.work, m, s, st["n"], cfg.il.max_text_len,
                            cfg.planner.max_gmap_len)
     out = {"attempted": w["iters"], "failed": 0, "peak": peak,
            "setup_s": setup_s,
@@ -410,16 +411,16 @@ def run(ctx, others=()) -> dict:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    want = compare.train_reference(batches, checked["rollout"], table, m,
-                                   wseed, dseed, device,
-                                   window=checked["window"])
+    want = compare.train_reference(ctx.reference, batches,
+                                   checked["rollout"], table, m, wseed,
+                                   dseed, device, window=checked["window"])
     out["readings"] = compare.train_readings(checked, want)
     out["others"] = {}
     for mode in others:
         side = compare.train_reference(
-            batches, checked["rollout"], table, m, wseed, dseed, device,
-            mode="fp8" if mode == "fp8" else "fp32", half=mode == "half",
-            window=checked["window"])
+            ctx.reference, batches, checked["rollout"], table, m, wseed,
+            dseed, device, mode="fp8" if mode == "fp8" else "fp32",
+            half=mode == "half", window=checked["window"])
         side["rollout"] = [dict(r, embeds=e) for r, e in zip(
             checked["rollout"], side["rollout_embeds"])]
         sw = side["window"]

@@ -31,7 +31,10 @@ def _json(root: str, rel: str) -> dict:
 
 def resolve(root: str, name: str) -> tuple:
     """(benchmark, cell, configuration file, traffic file, limits) of the
-    cell `name`; limits are {} where the cell has no limits file."""
+    cell `name`; limits are {} where the cell has no limits file. Imports
+    the reference and FLOP-count modules the configuration file names
+    (`common.modules`), so that one that does not import is an error
+    here, before any driver runs."""
     bench = _json(root, "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -39,6 +42,7 @@ def resolve(root: str, name: str) -> tuple:
     cell = cells[name]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     config = _json(root, conf["file"])
+    common.modules(config)
     traffic = _json(root, f"navbench/traffic/{cell['traffic']}.json")
     lim_path = f"navbench/limits/{name}.json"
     limits = (_json(root, lim_path)["numbers"]

@@ -2,6 +2,7 @@
 found by name."""
 
 import importlib
+import inspect
 import json
 import os
 import re
@@ -23,10 +24,14 @@ KEYS = {
 }
 
 
-@pytest.fixture(scope="module")
-def bench():
+def _bench():
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def bench():
+    return _bench()
 
 
 def _line(s):
@@ -120,23 +125,80 @@ def test_cells_resolve(bench):
         for name, lim in limits.items():
             assert (lim["limit"] == lim["lower"] == 0
                     or lim["lower"] < lim["limit"] < lim["upper"]), name
+    from navbench import common
     for c in bench["configs"]:
         assert _line(c["source"]) and _line(c["why"])
-        assert c["file"].startswith("navbench/") and c["reduced"] == []
+        assert c["file"].startswith("navbench/")
         with open(os.path.join(ROOT, c["file"])) as f:
             spec = json.load(f)
-        assert spec["name"] == c["name"] and spec["reduced"] == []
+        assert spec["name"] == c["name"]
         assert spec["source"] == c["source"]
+        # what was cut: keys of the model block, listed alike in both
+        # files ([] where nothing was)
+        assert spec["reduced"] == c["reduced"]
+        assert len(set(c["reduced"])) == len(c["reduced"]) <= 16
+        assert set(c["reduced"]) <= set(spec["model"])
+        # the reference and count modules it names (or the defaults)
+        # import and provide what the harness calls
+        ref, work = common.modules(spec)
+        for name in ("Ref", "Drop"):
+            assert callable(getattr(ref, name))
+        assert "mode" in inspect.signature(ref.Ref).parameters
+        for name in ("encode_text", "perceive", "score", "il_loss"):
+            assert callable(getattr(ref.Ref, name))
+        for name in ("perceive", "nav", "text", "train_step"):
+            assert callable(getattr(work, name))
     for m in bench["per_layer"]:
         assert os.path.exists(os.path.join(ROOT, "navbench", "metrics",
                                            m["name"] + ".py"))
 
 
-@pytest.mark.parametrize("name", ["r2r", "rxr"])
-def test_config_file_matches_the_program(name):
+@pytest.mark.parametrize("conf", _bench()["configs"],
+                         ids=lambda c: c["name"])
+def test_config_file_matches_the_program(conf):
     from navbench import model_config, program
-    with open(os.path.join(ROOT, "navbench", "configs", name + ".json")) as f:
+    with open(os.path.join(ROOT, conf["file"])) as f:
         spec = json.load(f)
     cfg = program.load_config(spec)      # raises on any difference
-    assert cfg.task_type == name
-    assert spec["model"] == model_config.model_block(cfg)
+    assert spec["name"] == conf["name"]
+    assert spec["model"]["task_type"] == cfg.task_type
+    assert spec["model"] == model_config.model_block(cfg, spec["model"])
+
+
+@pytest.mark.parametrize("name", ["r2r", "rxr"])
+def test_r2r_and_rxr_use_the_default_modules(name):
+    """A configuration file that names no modules (r2r's and rxr's) runs
+    with `navbench/reference/model.py` and `navbench/work/model.py`
+    themselves."""
+    import time
+    from navbench import common, harness
+    from navbench.reference import model as reference
+    from navbench.work import model as work
+    first = next(w["name"] for w in _bench()["workloads"]
+                 if w["config"] == name)
+    _, cell, config, traffic, limits = harness.resolve(ROOT, first)
+    assert "reference" not in config and "work" not in config
+    ctx = common.Context(root=ROOT, cell=cell, config=config,
+                         traffic=traffic, limits=limits, seed=1,
+                         seconds=1.0, trace=False,
+                         t_start=time.perf_counter())
+    assert ctx.reference is reference and ctx.work is work
+
+
+def test_a_module_that_does_not_import_is_a_resolve_error(tmp_path):
+    """A configuration file naming a module that does not import makes
+    the run exit 2, naming the module, before any driver runs."""
+    import shutil
+    from navbench import harness
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    for sub in ("configs", "traffic", "limits"):
+        shutil.copytree(os.path.join(ROOT, "navbench", sub),
+                        tmp_path / "navbench" / sub)
+    path = tmp_path / "navbench" / "configs" / "r2r.json"
+    spec = json.loads(path.read_text())
+    spec["work"] = "navbench.work.no_such_count"
+    path.write_text(json.dumps(spec))
+    with pytest.raises(ValueError, match="no_such_count"):
+        harness.resolve(str(tmp_path), "r2r.serve.c1")
+    assert harness.main(["--workload", "r2r.serve.c1", "--seed", "1",
+                         "--seconds", "1"], str(tmp_path), 0.0) == 2

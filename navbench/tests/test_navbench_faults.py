@@ -16,40 +16,53 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _run(driver, traffic: str, cell: str) -> bool:
+def tiny_spec(**keys) -> dict:
+    """The configuration file of tiny_config(), with `keys` added at its
+    top level."""
     from etpnav_tpu_torch.config import tiny_config
-    cfg = tiny_config()
-    spec = {"name": "tiny", "function": "tiny_config", "overrides": {},
-            "model": model_config.model_block(cfg),
+    return {"name": "tiny", "function": "tiny_config", "overrides": {},
+            "model": model_config.model_block(tiny_config()),
             "assumed": {"instruction_tokens": {
                 "lengths": [5, 9, 16], "cls_id": 2, "sep_id": 3,
                 "first_word_id": 10},
-                "path_m": {"lengths": [2.0, 3.5, 5.0], "hops": [2, 3]}}}
+                "path_m": {"lengths": [2.0, 3.5, 5.0], "hops": [2, 3]}},
+            **keys}
+
+
+def _run(driver, traffic: str, cell: str, spec: dict = None,
+         trace: bool = False) -> tuple:
+    """(correct, the driver's output) of a short CPU run of the traffic
+    under the cell's limits, at the configuration file `spec`
+    (`tiny_spec()` where None)."""
+    from etpnav_tpu_torch.config import tiny_config
+    cfg = tiny_config()
+    spec = tiny_spec() if spec is None else spec
     with open(os.path.join(ROOT, "navbench", "traffic",
                            traffic + ".json")) as f:
         tr = json.load(f)
     tr["params"].update(clients=3, envs=2, episodes=16, warm_buckets=[
-        [cfg.il.max_traj_len, cfg.planner.max_gmap_len]])
+        [cfg.il.max_traj_len, cfg.planner.max_gmap_len]],
+        trace_seconds=0.2)
     with open(os.path.join(ROOT, "navbench", "limits", cell + ".json")) as f:
         limits = json.load(f)["numbers"]
     torch.set_num_threads(2)
     ctx = common.Context(root=ROOT, cell={"name": cell, "chips": 1},
                          config=spec, traffic=tr, limits=limits,
-                         seed=2 ** 32 + 99, seconds=1.5, trace=False,
+                         seed=2 ** 32 + 99, seconds=1.5, trace=trace,
                          t_start=time.perf_counter(), device="cpu")
     out = driver.run(ctx)
     checks = common.judge(out["readings"], limits)
-    return bool(checks) and all(c["ok"] for c in checks)
+    return bool(checks) and all(c["ok"] for c in checks), out
 
 
 def serve():
     from navbench.drivers import serve_closed
-    return _run(serve_closed, "serve.c8", "r2r.serve.c8")
+    return _run(serve_closed, "serve.c8", "r2r.serve.c8")[0]
 
 
 def train():
     from navbench.drivers import train_il
-    return _run(train_il, "train.il", "r2r.train.il")
+    return _run(train_il, "train.il", "r2r.train.il")[0]
 
 
 def test_sound_runs_are_correct():
@@ -218,6 +231,90 @@ def test_train_fault_after_set_up(monkeypatch, fault):
         monkeypatch.setattr(finetune.FinetuneTrainer, "train", counted)
         monkeypatch.setattr(agent, "score_navigation", late)
     assert not train()
+
+
+class _NoDeviceWindow:
+    """`trace.DeviceWindow` on the CPU: no device to profile, an empty
+    summary."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def summary(self, spans=None, order=()):
+        return {}
+
+
+def _traced_serve(spec=None) -> tuple:
+    """`_run` of a traced serving run on the CPU, and the arguments of
+    its `compare.serve_readings` call."""
+    from navbench import compare, trace
+    from navbench.drivers import serve_closed
+    calls = []
+    orig = compare.serve_readings
+
+    def kept(*a, **k):
+        calls.append(a)
+        return orig(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(compare, "serve_readings", kept)
+        mp.setattr(trace, "DeviceWindow", _NoDeviceWindow)
+        ok, out = _run(serve_closed, "serve.c8", "r2r.serve.c8", spec,
+                       trace=True)
+    return ok, out, calls[0]
+
+
+@pytest.fixture(scope="module")
+def default_serve():
+    return _traced_serve()
+
+
+STUB = {"reference": "navbench.tests.stub_reference",
+        "work": "navbench.tests.stub_work"}
+
+
+@pytest.mark.parametrize("case", ["default", "stub", "missing_section"])
+def test_a_configuration_names_its_modules(request, case):
+    """A stand-in architecture joins by files alone: a configuration file
+    that names the stub reference and count modules of this directory is
+    resolved, run, judged against the stub's reference (whose text memory
+    is one higher: incorrect) and counted by the stub's count (its FLOPs
+    in the record's work). The default modules judge the same run
+    correct. A file that names a section the program's config lacks is
+    refused."""
+    from navbench.tests import stub_work
+    if case == "missing_section":
+        spec = tiny_spec()
+        spec["model"]["experts"] = {"num_experts": 8}
+        with pytest.raises(ValueError, match="experts"):
+            _traced_serve(spec)
+        return
+    if case == "default":
+        ok, out, _ = request.getfixturevalue("default_serve")
+    else:
+        ok, out, _ = _traced_serve(tiny_spec(**STUB))
+    assert ok == (case == "default")
+    assert (out["record"]["work"]["fp32"] >= stub_work.STUB_FLOPS) == (
+        case == "stub")
+
+
+def test_serve_readings_by_the_default_module(default_serve):
+    """The reference module a configuration without `reference` resolves
+    to gives `serve_readings` the same readings, on the same kept batches,
+    as ETPNav's `Ref` and `Drop` imported directly."""
+    import types
+    from navbench import compare
+    from navbench.reference import model
+    from navbench.reference.model import Drop, Ref
+    _, out, args = default_serve
+    assert args[0] is model
+    direct = types.SimpleNamespace(Ref=Ref, Drop=Drop)
+    again = compare.serve_readings(*args)
+    assert compare.serve_readings(direct, *args[1:]) == again
+    assert again == out["readings"]
 
 
 @pytest.mark.card

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from navbench import compare, model_config, program, weights
+from navbench.reference import model as reference
 from navbench.reference.model import Drop, Ref, nms_slots
 
 DEV = torch.device("cpu")
@@ -116,7 +117,8 @@ def test_learn_step_loss_and_rollout_logits(setup):
 
     tr.batch = keep
     tr.train(iters=2)
-    want = compare.train_reference(recs, [], table, m, 7, 12, DEV)
+    want = compare.train_reference(reference, recs, [], table, m, 7, 12,
+                                   DEV)
     assert np.allclose(want["loss"], tr.logs["IL_loss"][:2], rtol=1e-5)
     # the reference's replay without dropout gives the rollout's logits
     ref = Ref(weights.make_weights(table, 7, DEV), m)

@@ -13,6 +13,16 @@ the precision the part runs in on the program's default path:
 `train_step` counts a learn step at its (T, G) bucket: the forward, and
 twice the forward's products for the backward (the input and the weight
 gradients); the text stack's backward only where it is trained.
+
+This is the FLOP-count module of a configuration file that names none
+under `work` (`navbench/common.py`, `MODULES`). A count module provides
+`perceive(m, B)`, `nav(m, B, G, L)`, `text(m, B, L)` and
+`train_step(m, B, T, G, L)`, which the drivers call, each returning a
+Counter {"bf16": FLOPs, "fp32": FLOPs}: that dict is the contract. The
+drivers sum it over the window, and `seconds_at_peak` below, which knows
+no architecture, turns the sum into `mfu.serve` and `mfu.train`. A new
+architecture's module takes what it shares with ETPNav from here and
+defines what differs.
 """
 
 from __future__ import annotations
