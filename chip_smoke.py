@@ -9,8 +9,8 @@ CUDA toolkit):
 Phases, each reported on its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether PyYAML, transformers and tensorboard are installed;
-  2. build: every CUDA kernel of the port (six sources: K-ATT with
-     K-ATT-CHEAP, K-ATT-BWD, K-NMS, K-GN, K-PRENORM, K-BLOCK), from the
+  2. build: every CUDA kernel of the port (seven sources: K-ATT with
+     K-ATT-CHEAP, K-ATT-BWD, K-NMS, K-GN, K-PRENORM, K-BLOCK, K-MOE), from the
      sources in the checkout, one nvcc per source, all started together;
   3. every kernel against its plain PyTorch version on the card, at the
      serving path's shapes, in fp32 and bf16, with its time, the plain
@@ -35,6 +35,16 @@ Phases, each reported on its own lines:
      K-ATT with attention dropout 0.1 at the learn step's shapes, and its
      p_drop = 0 launch with the row log-sum-exp bit for bit against the
      serving launch;
+  3e. DeepSeek-V2's encoder kernels (`dsv2_phase`): K-ATT at head width
+     192 with a causal bias at MLA's shape (1, 16, 200, 192) against its
+     plain version, beside SDPA; K-MOE (`csrc/moe_gemm.cu`) at
+     DeepSeek-V2-Lite's widths, 16 held experts of 64, the 1200 routings
+     of a 200-token encode, gate/up and down against their plain
+     versions, beside `torch._grouped_mm` (where this PyTorch has it)
+     and a loop of one cuBLAS product per expert; the encoder at its
+     published widths and 3 layers (1 dense, 2 expert layers), bf16 on
+     the card against fp32 plain versions on the CPU, and its CUDA
+     graph's replay against the eager encoder;
   3d. the bounded barrier wait of csrc/dense.cuh: a child process
      (`--trap-child`) launches the bf16 GEMM built with one mbarrier
      arrival withheld (ETP_TEST_WITHHOLD_ARRIVE, built beside phase 2);
@@ -5500,6 +5510,230 @@ def depth_graph_phase(card: str, cfg, host_params) -> dict:
 T0 = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: DeepSeek-V2's encoder kernels
+# ---------------------------------------------------------------------------
+
+def moe_case(dev, T: int = 200, D: int = 2048, I: int = 1408,
+             n_experts: int = 64, held: int = 16, k: int = 6,
+             seed: int = 11) -> dict:
+    """One expert layer's K-MOE operands at DeepSeek-V2-Lite's widths:
+    the T*k routings of random router scores, sorted by held expert as
+    `dsv2_text.moe` sorts them, and bf16 weights of the held experts."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, D, generator=g, device=dev).bfloat16()
+    scores = torch.rand(T, n_experts, generator=g, device=dev).softmax(-1)
+    tw, ti = torch.topk(scores, k, dim=-1, sorted=False)
+    lut = torch.full((n_experts,), held, dtype=torch.long, device=dev)
+    lut[:held] = torch.arange(held, device=dev)
+    local = lut[ti].reshape(-1)
+    order = torch.argsort(local, stable=True)
+    cnt = torch.bincount(local, minlength=held + 1)
+    offsets = torch.cat([cnt.new_zeros(1), cnt[:held].cumsum(0)]).to(
+        torch.int32)
+    return {"x": x[order // k].contiguous(), "offsets": offsets,
+            "row_w": tw.reshape(-1)[order].contiguous(),
+            "dest": order.to(torch.int32), "n_dest": T * k,
+            "w_gu": (torch.randn(held, 2 * I, D, generator=g, device=dev)
+                     * 0.02).bfloat16(),
+            "w_d": (torch.randn(held, D, I, generator=g, device=dev)
+                    * 0.02).bfloat16(),
+            "rows": int(cnt[:held].sum()),
+            "groups": int((cnt[:held] > 0).sum())}
+
+
+def moe_work(c: dict, gate_up: bool) -> tuple:
+    """(bytes, FLOPs) of one K-MOE launch: each held expert with rows reads
+    its weights once, the rows are read and the outputs written once."""
+    held, n, K = (c["w_gu"].shape if gate_up else c["w_d"].shape)
+    rows, groups = c["rows"], c["groups"]
+    nbytes = groups * n * K * 2 + rows * K * 2 + rows * (
+        n // 2 * 2 if gate_up else n * 4)
+    return nbytes, 2.0 * rows * n * K
+
+
+def grouped_mm_ms(a, w, offsets):
+    """kernel_ms of `torch._grouped_mm` over the same groups, or None
+    where this PyTorch lacks it or refuses the shapes (a yardstick the
+    port never calls)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    b = w.transpose(1, 2)                      # (E, K, N)
+    offs = offsets[1:].contiguous()
+    R = int(offsets[-1])
+    try:
+        fn(a[:R], b, offs=offs)
+        torch.cuda.synchronize()
+        return kernel_ms(lambda: fn(a[:R], b, offs=offs))
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"torch._grouped_mm refused: {str(e)[:200]}")
+        return None
+
+
+def dsv2_phase(card: str) -> dict:
+    """Phase 3e (see the module docstring)."""
+    from etpnav_tpu_torch.ops import moe_gemm
+    from etpnav_tpu_torch.ops.fused_attention import attention_fwd
+    dev = torch.device("cuda")
+    rows = {}
+    # K-ATT at MLA's width: q, k (1, 16, 200, 192), v zero-padded from
+    # 128, a causal bias
+    g = torch.Generator(device=dev).manual_seed(12)
+    L, H = 200, 16
+
+    def natural(hd):
+        return torch.randn(1, L, H, hd, generator=g, device=dev)
+
+    q, k = natural(192), natural(192)
+    v = torch.nn.functional.pad(natural(128), (0, 64))
+    causal = torch.full((L, L), float("-inf"), device=dev).triu(1)[None]
+    rows["katt_192"] = attention_row(
+        card, "mla_causal_200", q.transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), causal, torch.bfloat16)
+    out = attention_fwd(q.transpose(1, 2).bfloat16(),
+                        k.transpose(1, 2).bfloat16(),
+                        v.transpose(1, 2).bfloat16(), causal, 0.1147)
+    if out[..., 128:].abs().max().item() != 0.0:
+        raise AssertionError("K-ATT 192: the zero-padded v gave nonzero "
+                             "output columns")
+    # K-MOE
+    c = moe_case(dev)
+    n0 = (moe_gemm.moe_gate_up_launches.value,
+          moe_gemm.moe_down_launches.value)
+    h = moe_gemm.moe_gate_up(c["x"], c["w_gu"], c["offsets"])
+    h_want = moe_gemm.moe_gate_up_plain(c["x"], c["w_gu"], c["offsets"])
+    y = moe_gemm.moe_down(h_want, c["w_d"], c["offsets"], c["row_w"],
+                          c["dest"], c["n_dest"])
+    y_want = moe_gemm.moe_down_plain(h_want, c["w_d"], c["offsets"],
+                                     c["row_w"], c["dest"], c["n_dest"])
+    torch.cuda.synchronize()
+    R = c["rows"]
+    err_h = (h[:R].float() - h_want[:R].float()).abs().max().item()
+    tol_h = bf16_tol(h_want[:R])
+    err_y = (y - y_want).abs().max().item()
+    tol_y = 1e-4 * y_want.abs().max().item()
+    if err_h > tol_h or err_y > tol_y or not torch.isfinite(y).all():
+        raise AssertionError(f"K-MOE: gate/up err {err_h} (tol {tol_h}), "
+                             f"down err {err_y} (tol {tol_y})")
+    if y[torch.tensor(sorted(set(range(c["n_dest"]))
+                             - set(c["dest"][:R].tolist())),
+                      dtype=torch.long, device=dev)].abs().max() != 0:
+        raise AssertionError("K-MOE down: a routing to another card's "
+                             "expert got a nonzero row")
+    if (moe_gemm.moe_gate_up_launches.value - n0[0],
+            moe_gemm.moe_down_launches.value - n0[1]) != (1, 1):
+        raise AssertionError("K-MOE: launch counters")
+    off = c["offsets"].tolist()
+
+    def cublas_loop(a, w):
+        for e in range(len(off) - 1):
+            if off[e + 1] > off[e]:
+                torch.mm(a[off[e]:off[e + 1]], w[e].t())
+    for name, gate_up in (("moe_gate_up", True), ("moe_down", False)):
+        if gate_up:
+            def run():
+                return moe_gemm.moe_gate_up(c["x"], c["w_gu"], c["offsets"])
+
+            def plain():
+                return moe_gemm.moe_gate_up_plain(c["x"], c["w_gu"],
+                                                  c["offsets"])
+            a, w = c["x"], c["w_gu"]
+        else:
+            def run():
+                return moe_gemm.moe_down(h_want, c["w_d"], c["offsets"],
+                                         c["row_w"], c["dest"], c["n_dest"])
+
+            def plain():
+                return moe_gemm.moe_down_plain(h_want, c["w_d"], c["offsets"],
+                                               c["row_w"], c["dest"],
+                                               c["n_dest"])
+            a, w = h_want, c["w_d"]
+        nbytes, flops = moe_work(c, gate_up)
+        b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+        ms, k_ms = cuda_ms(run, iters=20), kernel_ms(run)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        loop_ms = kernel_ms(lambda: cublas_loop(a, w))
+        gmm_ms = grouped_mm_ms(a, w, c["offsets"])
+        rows[name] = {"rows": R, "groups": c["groups"], "ms": ms,
+                      "kernel_ms": k_ms, "plain_ms": plain_ms,
+                      "cublas_loop_kernel_ms": loop_ms,
+                      "grouped_mm_kernel_ms": gmm_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "roofline": b_ms / k_ms,
+                      "max_abs_err": err_h if gate_up else err_y}
+        log(f"K-MOE {name}: {R} rows over {c['groups']} experts, "
+            f"w {tuple(w.shape)} err={rows[name]['max_abs_err']:.3g} "
+            f"ms={ms:.4f} kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"cublas_loop_kernel_ms={loop_ms:.4f} grouped_mm_kernel_ms="
+            f"{gmm_ms} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / k_ms:.1f}% of it) [{card}]")
+    rows["encoder_3_layers"] = dsv2_encoder_parity(card)
+    return rows
+
+
+def dsv2_encoder_parity(card: str) -> dict:
+    """The encoder at DeepSeek-V2-Lite's widths and 3 layers (the dense
+    one and two expert layers, 16 of 64 experts held), seeded random
+    weights: the card's bf16 text memory of a 200-token instruction
+    against the fp32 plain versions on the CPU (relative L2 over the
+    valid tokens; bf16 through three layers reads ~1e-2); the agent's
+    replay of the encoder's CUDA graph against its eager run (the
+    tracer's path), and the time of an encode by each."""
+    from etpnav_tpu_torch.config import rxr_dsv2lite_config
+    from etpnav_tpu_torch.models import dsv2_text
+    from etpnav_tpu_torch.ops import moe_gemm
+    from etpnav_tpu_torch.training.agent import Agent, init_agent_params
+    from etpnav_tpu_torch.utils import logging as tracing
+    cfg = rxr_dsv2lite_config()
+    cfg = dataclasses.replace(cfg, text_llm=dataclasses.replace(
+        cfg.text_llm, num_layers=3))
+    cfg32 = dataclasses.replace(cfg, planner=dataclasses.replace(
+        cfg.planner, use_bf16=False))
+    params = init_agent_params(cfg, seed=3)
+    rng = np.random.default_rng(3)
+    ids = np.zeros((1, 200), np.int64)
+    ids[0, :150] = rng.integers(1, 102400, 150)
+    mask = ids != 0
+    want = dsv2_text.encode(params.text_llm, cfg32, torch.from_numpy(ids),
+                            torch.from_numpy(mask))
+    agent = Agent(cfg, params, device="cuda")
+    n0 = moe_gemm.moe_gate_up_launches.value
+    got = agent.encode_text(ids, mask).cpu()      # captures the graph
+    torch.cuda.synchronize()
+    m = torch.from_numpy(mask[0])
+    rel = ((got[0][m] - want[0][m]).norm() / want[0][m].norm()).item()
+    launches = moe_gemm.moe_gate_up_launches.value - n0
+    # the graph's replay against the eager encoder (the tracer's path)
+    replay = agent.encode_text(ids, mask).cpu()
+    tracing.enable()
+    try:
+        eager = agent.encode_text(ids, mask).cpu()
+    finally:
+        tracing.disable()
+    graph_rel = ((replay - eager).norm() / eager.norm()).item()
+    ms = cuda_ms(lambda: agent.encode_text(ids, mask), iters=10, warmup=2)
+    x = torch.stack([torch.from_numpy(ids), torch.from_numpy(mask).long()]
+                    ).cuda()
+    with torch.inference_mode():
+        eager_ms = cuda_ms(lambda: agent._encode_llm(x), iters=10, warmup=2)
+    replays = agent._text_graphs.replays
+    stats = agent.text_stats()
+    log(f"DeepSeek-V2 encoder, 3 layers at published widths: bf16 card vs "
+        f"fp32 CPU rel L2 {rel:.4g}; K-MOE gate/up launches {launches}; "
+        f"graph replay vs eager rel L2 {graph_rel:.3g}; {ms:.2f} ms an "
+        f"encode by graph, {eager_ms:.2f} ms eager ({replays} replays); "
+        f"{stats} [{card}]")
+    if launches != 2 or not rel < 0.05 or not graph_rel < 1e-3 \
+            or replays < 13:
+        raise AssertionError(f"encoder parity: rel {rel}, K-MOE launches "
+                             f"{launches}, graph rel {graph_rel}, "
+                             f"{replays} replays")
+    del agent
+    torch.cuda.empty_cache()
+    return {"rel_l2": rel, "ms": ms, "eager_ms": eager_ms,
+            "graph_rel_l2": graph_rel, "stats": stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -5568,6 +5802,8 @@ def main() -> int:
     check_round_bf16(card)
     pre_rows = check_prenorm(card, cfg)
     gemm_rows = check_gemm(card)
+    # phase 3e
+    dsv2_rows = dsv2_phase(card)
     # phase 3d
     trap = check_barrier_trap(card, trap_build)
     trap_tmp.cleanup()
@@ -5954,6 +6190,7 @@ def main() -> int:
         f"kernel, least and largest, by slice of the run "
         f"{json.dumps(skew_summary())}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"dsv2": dsv2_rows}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

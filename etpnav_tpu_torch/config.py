@@ -7,7 +7,9 @@ False here (ROADMAP §3). Switches that only the JAX package can act on
 (the `jax.checkpoint` policy `remat_policy`, the bf16 attention-probs
 chain `attn_probs_bf16`, the dropout PRNG choices
 `rng_impl`/`dropout_bits8`) are not here (`config_yaml.py` refuses
-them). `MeshConfig.backend` is the port's own field.
+them). `MeshConfig.backend` is the port's own field, and
+`TextLLMConfig` (`text_llm`, off by default) the port's own section: a
+DeepSeek-V2 decoder as the instruction encoder (`rxr_dsv2lite_config`).
 Several comments below record measurements taken on a TPU for the JAX
 package; they explain the defaults there and say nothing about the
 port's speed on a GPU.
@@ -335,6 +337,56 @@ class MeshConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TextLLMConfig:
+    """A DeepSeek-V2 decoder as the instruction encoder (a section of the
+    port only; `models/dsv2_text.py`). With `enabled`, its last hidden
+    states, after the final RMSNorm, are projected to the planner's
+    width (Linear without bias + LayerNorm at
+    `planner.lang_layer_norm_eps`) and become the text memory in place of
+    the BERT text stack, which is then not built. The encoder is frozen:
+    the trainers refuse a configuration that enables it.
+
+    The defaults are DeepSeek-V2-Lite's published config.json: MLA
+    without query compression, YaRN rotary positions, one dense SiLU
+    layer, then routed experts (greedy softmax top-k, no renormalisation)
+    plus shared experts. `held_experts` are the routed experts this
+    process holds, its share of an expert-parallel deployment (() = all
+    of them): the router scores all `n_routed_experts` and keeps its
+    top-k, and only routings to held experts add to the result."""
+
+    enabled: bool = False
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    num_layers: int = 27
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 10944       # the dense layers' MLP
+    moe_intermediate_size: int = 1408    # one routed expert
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 1.0
+    held_experts: Tuple[int, ...] = ()
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # YaRN (rope_scaling); factor <= 1 turns it off
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+
+    @property
+    def held(self) -> Tuple[int, ...]:
+        return self.held_experts or tuple(range(self.n_routed_experts))
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     task_type: str = "r2r"       # or 'rxr'
     planner: PlannerConfig = PlannerConfig()
@@ -349,6 +401,7 @@ class ExperimentConfig:
     inference: InferenceConfig = InferenceConfig()
     paths: DataPathsConfig = DataPathsConfig()
     mesh: MeshConfig = MeshConfig()
+    text_llm: TextLLMConfig = TextLLMConfig()
     seed: int = 0
     # MODEL.pretrained_path: the planner to start fine-tuning from, a
     # pretrain checkpoint of the port (`training/warm_start.py`) or a
@@ -410,6 +463,42 @@ def rxr_config(**overrides) -> ExperimentConfig:
                   train_gmap_buckets=(48, 64, 96))
     cfg = ExperimentConfig(task_type="rxr", planner=planner, il=il)
     return dataclasses.replace(cfg, **overrides)
+
+
+def rxr_dsv2lite_config(**overrides) -> ExperimentConfig:
+    """ETPNav's RxR-CE agent with DeepSeek-V2-Lite (27 layers, MLA, 64
+    routed experts of which 6 a token, 2 shared) as its frozen
+    instruction encoder, after NavGPT-2 (arXiv:2407.12366), which feeds a
+    large language model's hidden states into the DUET-style graph
+    policy that ETPNav's planner is. This process holds experts 0-15 of
+    each expert layer, rank 0 of the four of an expert-parallel
+    deployment over 4 H100s; attention, the shared experts, the dense
+    layer and the embedding are whole. Instructions are ids of the
+    model's 102400-word vocabulary, right-padded with 0 (bos 100000,
+    eos 100001 are the model's own)."""
+    base = rxr_config()
+    planner = dataclasses.replace(base.planner, vocab_size=102400,
+                                  pad_token_id=0)
+    text_llm = TextLLMConfig(enabled=True, held_experts=tuple(range(16)))
+    cfg = dataclasses.replace(base, planner=planner, text_llm=text_llm)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def tiny_dsv2_config(**overrides) -> ExperimentConfig:
+    """`tiny_config()` with a tiny DeepSeek-V2 instruction encoder, for
+    tests: 1 dense and 2 expert layers at hidden 32, 8 routed experts of
+    which 4 are held (1, 3, 4, 6) and 2 a token, 1 shared; MLA at kv rank
+    16 with 8 rope dims; YaRN at the published factors. The routed sum is
+    scaled by 16 (DeepSeek-V2's own factor; V2-Lite's is 1), so that at
+    random weights of 0.02 the routed experts weigh in the text memory."""
+    text_llm = TextLLMConfig(
+        enabled=True, vocab_size=512, hidden_size=32, num_layers=3,
+        num_heads=2, kv_lora_rank=16, qk_nope_head_dim=8,
+        qk_rope_head_dim=8, v_head_dim=8, intermediate_size=48,
+        moe_intermediate_size=16, n_routed_experts=8, n_shared_experts=1,
+        num_experts_per_tok=2, routed_scaling_factor=16.0,
+        held_experts=(1, 3, 4, 6))
+    return tiny_config(text_llm=text_llm, **overrides)
 
 
 def tiny_config(**overrides) -> ExperimentConfig:

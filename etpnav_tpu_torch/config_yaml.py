@@ -13,7 +13,13 @@ A TPU-only key of a ported section (IL.rng_impl, PLANNER.remat_policy,
 a message that says it is TPU-only.
 
 MESH takes the JAX package's dp and mp and the port's own `backend`
-(`parallel/mesh.py`). An unknown section or key raises KeyError. Nothing
+(`parallel/mesh.py`). TEXT_LLM is the port's own section
+(`config.TextLLMConfig`): `enabled: true` selects the DeepSeek-V2
+instruction encoder in place of the BERT text stack (the preset
+`BASE: rxr_dsv2lite` is RxR-CE with DeepSeek-V2-Lite, 16 of its 64
+experts held; `python -m etpnav_tpu_torch.run --exp-config X.yaml
+--run-type serve` with X.yaml = `BASE: rxr_dsv2lite` serves it). The
+trainers refuse it: the encoder is frozen. An unknown section or key raises KeyError. Nothing
 is dropped silently. PyYAML is imported only by the functions that
 parse YAML, so `config_from_dict` and the runner's `run_config` need no
 PyYAML.
@@ -39,6 +45,7 @@ _SECTION_FIELDS = {
     "INFERENCE": "inference",
     "PATHS": "paths",
     "MESH": "mesh",
+    "TEXT_LLM": "text_llm",
 }
 
 # keys of the JAX package's config that act on the TPU program only
@@ -48,6 +55,7 @@ _TPU_ONLY = {"remat_policy", "rng_impl", "dropout_bits8", "attn_probs_bf16"}
 _PRESETS = {
     "r2r": C.r2r_config,
     "rxr": C.rxr_config,
+    "rxr_dsv2lite": C.rxr_dsv2lite_config,
     "tiny": C.tiny_config,
 }
 

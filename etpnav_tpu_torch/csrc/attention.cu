@@ -39,6 +39,15 @@
 // fp32 tolerances), 16 query rows per block of 4 warps, keys in tiles of
 // 32, one per lane.
 //
+// Head width 192 (DeepSeek-V2's MLA: 128 + 64 rotary dims of q and k, v
+// zero-padded from 128 by the caller and the output cut back), bf16 and
+// without dropout only: the same kernel instantiated at HD = 192, its q
+// fragments and output accumulators three times as wide, one block of 8
+// warps per SM (up to 255 registers a thread) and K/V chunks of 128 keys
+// (153 KB of shared memory with the q rows). At L = 200 it moves ~26 FLOP
+// per byte and is bound by bytes too; the width-64 instantiation is the
+// code it was before the head width became a template parameter.
+//
 // Numerics, both designs, as the Pallas kernels: fp32 logits, max and
 // sum; the unnormalised probability p is rounded to the input dtype
 // before p.v, which accumulates in fp32; the division by the sum comes
@@ -245,28 +254,38 @@ attention_fwd_f32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-using etp::kTcPitch;
 
 constexpr int kTcWarps = 8;                // 16 query rows each
 constexpr int kTcRows = 16 * kTcWarps;     // query rows per block
 constexpr int kTcGroup = 64;               // keys per online-softmax step
-constexpr int kTcMaxChunk = 256;           // keys in shared memory at once
+
+// Keys in shared memory at once: 256 at hd = 64; 128 at hd = 192, whose
+// rows take three times the bytes (153 KB with a block's q rows, one
+// block per SM).
+__host__ __device__ constexpr int tc_max_chunk(int hd) {
+  return hd == 64 ? 256 : 128;
+}
 
 // Dynamic shared memory: the block's q rows (16 per warp), then a chunk of
-// K and of V.
-__host__ __device__ constexpr int tc_smem_bytes(int warps, int chunk) {
-  return (16 * warps + 2 * chunk) * kTcPitch * 2;
+// K and of V, each row at a pitch of hd + 8 elements (etp::kTcPitch at 64).
+__host__ __device__ constexpr int tc_smem_bytes(int warps, int chunk,
+                                                int hd) {
+  return (16 * warps + 2 * chunk) * (hd + 8) * 2;
 }
 
 // grid: (B*H, ceil(Lq / 128)); block: min(8, ceil(Lq / 16)) warps; chunk:
 // the keys copied to shared memory at once (Lk rounded up to 16, at most
-// kTcMaxChunk, a multiple of kTcGroup). Warp w owns query rows q0 + 16 w
-// .. + 15; per group of 64 keys it holds S in 8 m16n8 accumulators, the
-// output in 8 more (64 dims), and per fragment row the running max and a
+// tc_max_chunk(HD), a multiple of kTcGroup). Warp w owns query rows q0 +
+// 16 w .. + 15; per group of 64 keys it holds S in 8 m16n8 accumulators,
+// the output in HD / 8 more, and per fragment row the running max and a
 // partial sum of its lanes' keys. CHEAP: K-ATT-CHEAP's constant-shift
 // softmax in place of the online one (no bias, no dropout, no lse).
-template <bool DROP, bool CHEAP>
-__global__ void __launch_bounds__(kTcWarps * 32, 2)
+// HD = 64 is every ETPNav head; HD = 192 is MLA's (qk 128 + 64 rope, v
+// zero-padded to 192 by the caller), whose q fragments (48 registers)
+// and output accumulators (96) take one block of 8 warps per SM with up
+// to 255 registers a thread, where hd = 64 runs two.
+template <int HD, bool DROP, bool CHEAP>
+__global__ void __launch_bounds__(kTcWarps * 32, HD == 64 ? 2 : 1)
 attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const float* __restrict__ bias, bf16* __restrict__ out,
@@ -276,11 +295,14 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const long long* __restrict__ seed_offset,
                         uint32_t threshold, float inv_keep, int heads_total,
                         int head_base, float* __restrict__ lse) {
+  constexpr int kPitch = HD + 8;          // etp::kTcPitch at HD = 64
+  constexpr int kRowChunks = HD / 8;      // 16-byte chunks of a row
+  constexpr int kKs = HD / 16;            // k steps of Q.K^T, n16 of P.V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nthreads = blockDim.x;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // [16 warps][pitch]
-  bf16* ks = qs + nthreads / 32 * 16 * kTcPitch;       // [chunk][pitch]
-  bf16* vs = ks + chunk * kTcPitch;                    // [chunk][pitch]
+  bf16* ks = qs + nthreads / 32 * 16 * kPitch;         // [chunk][pitch]
+  bf16* vs = ks + chunk * kPitch;                      // [chunk][pitch]
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -298,9 +320,10 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   [[maybe_unused]] const float scale_bf16 = round_bf16(scale);
 
   // the block's q rows (16 per warp; rows past Lq are zeros)
-  for (int c = threadIdx.x; c < nthreads / 32 * 16 * 8; c += nthreads) {
-    const int r = c / 8, ch = c % 8, qi = q0 + r;
-    bf16* dst = qs + r * kTcPitch + ch * 8;
+  for (int c = threadIdx.x; c < nthreads / 32 * 16 * kRowChunks;
+       c += nthreads) {
+    const int r = c / kRowChunks, ch = c % kRowChunks, qi = q0 + r;
+    bf16* dst = qs + r * kPitch + ch * 8;
     if (qi < Lq)
       etp::cp_async16(dst, qb + qi * sq.l + ch * 8);
     else
@@ -309,21 +332,21 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row0 = q0 + warp * 16 + grp;               // rows row0, row0+8
   const bool active = q0 + warp * 16 < Lq;             // uniform per warp
-  uint32_t qf[4][4];                                   // A: 16 rows x 64
-  float acc[8][4];                                     // out: 16 x 64
+  uint32_t qf[kKs][4];                                 // A: 16 rows x HD
+  float acc[2 * kKs][4];                               // out: 16 x HD
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 2 * kKs; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int c0 = 0; c0 < Lk; c0 += chunk) {
     const int n16 = min(chunk, (Lk - c0 + 15) & ~15);  // keys in smem
     if (c0) __syncthreads();                           // chunk consumed
-    for (int c = threadIdx.x; c < n16 * 8; c += nthreads) {
-      const int r = c / 8, ch = c % 8, kj = c0 + r;
-      bf16* kd = ks + r * kTcPitch + ch * 8;
-      bf16* vd = vs + r * kTcPitch + ch * 8;
+    for (int c = threadIdx.x; c < n16 * kRowChunks; c += nthreads) {
+      const int r = c / kRowChunks, ch = c % kRowChunks, kj = c0 + r;
+      bf16* kd = ks + r * kPitch + ch * 8;
+      bf16* vd = vs + r * kPitch + ch * 8;
       if (kj < Lk) {
         etp::cp_async16(kd, kb + kj * sk.l + ch * 8);
         etp::cp_async16(vd, vb + kj * sv.l + ch * 8);
@@ -337,8 +360,8 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!active) continue;
     if (c0 == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        etp::load_a(qf[kk], qs, kTcPitch, warp * 16, kk * 16, lane);
+      for (int kk = 0; kk < kKs; ++kk)
+        etp::load_a(qf[kk], qs, kPitch, warp * 16, kk * 16, lane);
     }
 
     for (int g = 0; g < n16; g += kTcGroup) {
@@ -352,9 +375,9 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int t = 0; t < 4; ++t) {
         if (t < steps) {
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
+          for (int kk = 0; kk < kKs; ++kk) {
             uint32_t bf[4];
-            etp::load_b_nt(bf, ks, kTcPitch, g + 16 * t, kk * 16, lane);
+            etp::load_b_nt(bf, ks, kPitch, g + 16 * t, kk * 16, lane);
             etp::mma_bf16(s[2 * t], qf[kk], bf);
             etp::mma_bf16(s[2 * t + 1], qf[kk], bf + 2);
           }
@@ -426,7 +449,7 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < 2 * kKs; ++j) {
           acc[j][0] *= corr[0];
           acc[j][1] *= corr[0];
           acc[j][2] *= corr[1];
@@ -441,9 +464,9 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t pa[4];
           etp::acc_to_a(pa, s[2 * t], s[2 * t + 1]);
 #pragma unroll
-          for (int dp2 = 0; dp2 < 4; ++dp2) {
+          for (int dp2 = 0; dp2 < kKs; ++dp2) {
             uint32_t bf[4];
-            etp::load_b_nn(bf, vs, kTcPitch, g + 16 * t, dp2 * 16, lane);
+            etp::load_b_nn(bf, vs, kPitch, g + 16 * t, dp2 * 16, lane);
             etp::mma_bf16(acc[2 * dp2], pa, bf);
             etp::mma_bf16(acc[2 * dp2 + 1], pa, bf + 2);
           }
@@ -461,9 +484,9 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] = quad_sum(l[i]);
     inv[i] = 1.f / l[i];
   }
-  bf16* stage = qs + warp * 16 * kTcPitch;
+  bf16* stage = qs + warp * 16 * kPitch;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 2 * kKs; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float x0 = acc[j][2 * i], x1 = acc[j][2 * i + 1];
@@ -472,17 +495,18 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         x1 *= dp.inv_keep;
       }
       *reinterpret_cast<__nv_bfloat162*>(
-          stage + (grp + 8 * i) * kTcPitch + 8 * j + 2 * tig) =
+          stage + (grp + 8 * i) * kPitch + 8 * j + 2 * tig) =
           __floats2bfloat162_rn(x0 * inv[i], x1 * inv[i]);
     }
   __syncwarp();
   bf16* ob = out + b * so.b + h * so.h;
 #pragma unroll
-  for (int c = lane; c < 16 * 8; c += 32) {
-    const int r = c / 8, ch = c % 8, qi = q0 + warp * 16 + r;
+  for (int c = lane; c < 16 * kRowChunks; c += 32) {
+    const int r = c / kRowChunks, ch = c % kRowChunks,
+              qi = q0 + warp * 16 + r;
     if (qi < Lq)
       *reinterpret_cast<uint4*>(ob + qi * so.l + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kTcPitch + ch * 8);
+          *reinterpret_cast<const uint4*>(stage + r * kPitch + ch * 8);
   }
   // l is the sum at the final max m (or 0 when every logit is -inf,
   // whose probabilities the backward then takes as 0)
@@ -497,7 +521,7 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool DROP, bool CHEAP>
+template <int HD, bool DROP, bool CHEAP>
 int launch_tc(const void* q, const void* k, const void* v, const float* bias,
               void* out, int B, int H, int Lq, int Lk, Strides sq,
               Strides sk, Strides sv, Strides so, long long sbb,
@@ -508,10 +532,10 @@ int launch_tc(const void* q, const void* k, const void* v, const float* bias,
   if (!etp::rows16(q, sq, B, H, Lq) || !etp::rows16(k, sk, B, H, Lk) ||
       !etp::rows16(v, sv, B, H, Lk) || !etp::rows16(out, so, B, H, Lq))
     return etp::kErrMisaligned;
-  const int chunk = std::min(kTcMaxChunk, (Lk + 15) / 16 * 16);
+  const int chunk = std::min(tc_max_chunk(HD), (Lk + 15) / 16 * 16);
   const int warps = std::min(kTcWarps, (Lq + 15) / 16);
-  const int bytes = tc_smem_bytes(warps, chunk);
-  auto kernel = attention_fwd_tc_kernel<DROP, CHEAP>;
+  const int bytes = tc_smem_bytes(warps, chunk, HD);
+  auto kernel = attention_fwd_tc_kernel<HD, DROP, CHEAP>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -537,9 +561,10 @@ extern "C" {
 // first of them these H are (H and 0 unless the heads are split over
 // ranks; philox.cuh). lse: null, or a contiguous fp32 (B, H, Lq) output.
 // Returns cudaGetLastError() after the launch, -1 for a head dim or
-// dtype the kernel does not take (hd = 64, the width of every
-// configuration's heads, is the one built), or etp::kErrMisaligned for a
-// bf16 q, k, v or out without 16-byte rows (etp::rows16).
+// dtype the kernel does not take (hd = 64, the width of ETPNav's heads,
+// in both dtypes; hd = 192, MLA's, in bf16 without dropout), or
+// etp::kErrMisaligned for a bf16 q, k, v or out without 16-byte rows
+// (etp::rows16).
 int etp_attention_fwd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int dtype, int B, int H,
                       int Lq, int Lk, int hd, long long sqb, long long sqh,
@@ -556,15 +581,20 @@ int etp_attention_fwd(const void* q, const void* k, const void* v,
   const long long* sp = static_cast<const long long*>(seed_offset);
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 64) return -1;
-  if (dtype == 1)
-    return sp ? launch_tc<true, false>(q, k, v, bp, out, B, H, Lq, Lk, sq,
-                                       sk, sv, so, sbb, sbq, sbk, scale, sp,
-                                       threshold, inv_keep, heads_total,
-                                       head_base, lp, st)
-              : launch_tc<false, false>(q, k, v, bp, out, B, H, Lq, Lk, sq,
+  if (hd == 192 && dtype == 1 && !sp)
+    return launch_tc<192, false, false>(q, k, v, bp, out, B, H, Lq, Lk, sq,
                                         sk, sv, so, sbb, sbq, sbk, scale,
                                         nullptr, 0u, 1.f, H, 0, lp, st);
+  if (hd != 64) return -1;
+  if (dtype == 1)
+    return sp ? launch_tc<64, true, false>(q, k, v, bp, out, B, H, Lq, Lk,
+                                           sq, sk, sv, so, sbb, sbq, sbk,
+                                           scale, sp, threshold, inv_keep,
+                                           heads_total, head_base, lp, st)
+              : launch_tc<64, false, false>(q, k, v, bp, out, B, H, Lq, Lk,
+                                            sq, sk, sv, so, sbb, sbq, sbk,
+                                            scale, nullptr, 0u, 1.f, H, 0,
+                                            lp, st);
   if (dtype != 0) return -1;
   const dim3 grid(B * H, (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
   const float* qf = static_cast<const float*>(q);
@@ -594,7 +624,7 @@ int etp_attention_cheap(const void* q, const void* k, const void* v,
                         long long sob, long long soh, long long sol,
                         float scale, void* stream) {
   if (hd != 64) return -1;
-  return launch_tc<false, true>(
+  return launch_tc<64, false, true>(
       q, k, v, nullptr, out, B, H, Lq, Lk, Strides{sqb, sqh, sql},
       Strides{skb, skh, skl}, Strides{svb, svh, svl}, Strides{sob, soh, sol},
       0, 0, 0, scale, nullptr, 0u, 1.f, H, 0, nullptr,

@@ -168,14 +168,34 @@ class MLMHead(nn.Module):
             self.bias.zero_()
 
 
-class PlannerParams(nn.Module):
-    def __init__(self, cfg: PlannerConfig, use_lang2visn: bool = False):
+class TypeEmbeddings(nn.Module):
+    """The one table of BertEmbeddings that the pano embedding reads
+    (token type 1), for a planner whose text memory comes from another
+    encoder (`TextLLMConfig`), which builds no BERT text stack."""
+
+    def __init__(self, type_vocab: int, hidden: int):
         super().__init__()
-        self.embeddings = BertEmbeddings(
-            cfg.vocab_size, cfg.hidden_size, cfg.max_position_embeddings,
-            cfg.type_vocab_size)
-        self.lang_encoder = bert_stack_modules(
-            cfg.num_l_layers, cfg.hidden_size, cfg.intermediate_size)
+        self.token_type_embeddings = nn.Parameter(
+            torch.zeros(type_vocab, hidden))
+
+
+class PlannerParams(nn.Module):
+    """With `text_stack=False` the BERT text embeddings and language
+    encoder are not built (only the token-type table the pano embedding
+    reads)."""
+
+    def __init__(self, cfg: PlannerConfig, use_lang2visn: bool = False,
+                 text_stack: bool = True):
+        super().__init__()
+        if text_stack:
+            self.embeddings = BertEmbeddings(
+                cfg.vocab_size, cfg.hidden_size,
+                cfg.max_position_embeddings, cfg.type_vocab_size)
+            self.lang_encoder = bert_stack_modules(
+                cfg.num_l_layers, cfg.hidden_size, cfg.intermediate_size)
+        else:
+            self.embeddings = TypeEmbeddings(cfg.type_vocab_size,
+                                             cfg.hidden_size)
         self.img_embeddings = ImgEmbeddings(cfg)
         self.global_encoder = GlobalEncoder(cfg, use_lang2visn)
         self.global_sap_head = SapHead(cfg.hidden_size)

@@ -27,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("attention", "attention_bwd", "heatmap_nms", "groupnorm",
-           "prenorm_attention", "attention_block")
+           "prenorm_attention", "attention_block", "moe_gemm")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

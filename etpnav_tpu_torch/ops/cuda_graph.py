@@ -11,9 +11,9 @@ kernels built, cuDNN's plans chosen; that run's result is the call's
 output), then captures `fn` on that stream into the graph's own memory
 pool with `capture_error_mode="thread_local"`, so that other threads'
 CUDA calls go on meanwhile. A replay copies x into the graph's static
-input, replays, and returns a copy of the static output: no caller
-holds the graph's buffers. The graphs and their pools are freed with
-this object.
+input, replays, and returns a copy of the static output (of each
+tensor, where `fn` returns a tuple of them): no caller holds the graph's
+buffers. The graphs and their pools are freed with this object.
 
 `fn` reads its weights from the tensors it closes over, inside the
 captured work: weights copied into those tensors in place are what the
@@ -32,6 +32,11 @@ import torch
 from etpnav_tpu_torch.ops import cuda_build
 
 
+def _apply(f, out):
+    """f of a tensor, or of each tensor of a tuple."""
+    return tuple(map(f, out)) if isinstance(out, tuple) else f(out)
+
+
 class _Graph:
     __slots__ = ("graph", "x", "out", "launches", "done")
 
@@ -41,7 +46,7 @@ class CapturedGraphs:
     the module's docstring). `replays`, `captures` and `eager_calls`
     (calls on a CUDA tensor that ran `fn` eagerly) count the calls."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+    def __init__(self, fn: Callable[[torch.Tensor], object]):
         self.fn = fn
         self._graphs: Dict[tuple, _Graph] = {}
         # one caller at a time owns a graph's static buffers
@@ -53,7 +58,7 @@ class CapturedGraphs:
         """Whether a call on `x` captures or replays a graph."""
         return x.is_cuda and not torch.cuda.is_current_stream_capturing()
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor):
         if not x.is_cuda:
             return self.fn(x)
         if torch.cuda.is_current_stream_capturing():
@@ -72,7 +77,7 @@ class CapturedGraphs:
             stream.wait_event(g.done)
             g.x.copy_(x)
             g.graph.replay()
-            out = g.out.clone()
+            out = _apply(torch.Tensor.clone, g.out)
             g.done.record(stream)
             self.replays += 1
         cuda_build.add_launches(g.launches)
@@ -96,6 +101,6 @@ class CapturedGraphs:
                 g.out = self.fn(g.x)
         cuda_build.add_launches(g.launches, -1)
         cur.wait_stream(side)
-        out.record_stream(cur)
+        _apply(lambda t: t.record_stream(cur), out)
         g.done = torch.cuda.Event()
         return out, g

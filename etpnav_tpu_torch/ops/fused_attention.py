@@ -55,7 +55,10 @@ import torch
 from etpnav_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head widths each kernel is built for: 64 (ETPNav's heads) everywhere;
+# K-ATT also at 192 (DeepSeek-V2's MLA), bf16 without dropout
 _HEAD_DIMS = (64,)
+_FWD_HEAD_DIMS = (64, 192)
 _OUT_LAYOUTS = ("natural", "head")
 
 #: launches of the CUDA kernels (wrappers) and calls of the plain versions
@@ -308,14 +311,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> None:
+               v: torch.Tensor, head_dims=_HEAD_DIMS) -> None:
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {q.dtype} not supported")
-    if hd not in _HEAD_DIMS:
+    if hd not in head_dims:
         raise ValueError(f"{what}: head dim {hd} not supported "
-                         f"(built for {_HEAD_DIMS})")
+                         f"(built for {head_dims})")
     for name, t, want in (("k", k, (B, H, Lk, hd)), ("v", v, (B, H, Lk, hd))):
         if tuple(t.shape) != want:
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
@@ -401,8 +404,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, bias, scale, p_drop, seed_offset,
                                return_lse, out_layout, head_base,
                                heads_total)
-    _check_qkv("attention_fwd", q, k, v)
+    _check_qkv("attention_fwd", q, k, v, _FWD_HEAD_DIMS)
     B, H, Lq, hd = q.shape
+    if hd != 64 and (q.dtype != torch.bfloat16 or seed_offset is not None):
+        raise ValueError(f"attention_fwd: head dim {hd} is built for bf16 "
+                         "without dropout only")
     heads_total = _check_heads(H, head_base, heads_total)
     Lk = k.shape[2]
     bias_ptr, sb, _keep_alive = _bias_operand("attention_fwd", bias, q, Lk)

@@ -27,7 +27,8 @@ thread (key (sid, step), with the id of the batch that claimed it); the
 batcher's `_collect` is `serve.collect` and `_process` is `serve.batch`
 (key: the batch id) with the consecutive children `serve.stage`,
 `serve.perceive`, `serve.map`, `serve.score` and `serve.translate`;
-`create_session`'s text encoding is `serve.encode_text` (key: the sid).
+`create_session`'s text encoding is `serve.encode_text` (key: the sid),
+which holds the agent's `agent.text_llm` with the DeepSeek-V2 encoder.
 
 Returned actions use the env-action dict vocabulary of the rollout
 engine / env layer (environments.py:436-477 semantics): act 0 = stop at
@@ -266,7 +267,11 @@ class NavServer:
         dispatch poisons its sessions and increments failed_batches
         instead. The agent's depth-trunk counters
         (`Agent.depth_graph_stats`) come with them: depth_graph_replays,
-        depth_eager_calls, depth_graph_captures."""
+        depth_eager_calls, depth_graph_captures; and its text counters
+        (`Agent.text_stats`): text_encodes, text_tokens, and the
+        DeepSeek-V2 encoder's moe_rows, moe_groups, moe_rows_elsewhere.
+        The text counters are device counters, so this call waits for
+        the device."""
         with self._lock:
             batches = self._batches
             steps = self._steps_served
@@ -279,7 +284,8 @@ class NavServer:
                 "mean_occupancy": round(occ, 4),
                 "live_sessions": live,
                 "queue_depth": self._queue.qsize(),
-                **self.agent.depth_graph_stats()}
+                **self.agent.depth_graph_stats(),
+                **self.agent.text_stats()}
 
     def close_session(self, sid: int) -> dict:
         with self._lock:

@@ -1,7 +1,9 @@
 """ETP agent runtime (counterpart of `etpnav_tpu/training/agent.py`):
 the three device programs of a navigation step, in eager PyTorch.
 
-- `encode_text`      instruction ids -> text memory
+- `encode_text`      instruction ids -> text memory (the BERT text stack,
+                     or with `TextLLMConfig.enabled` the DeepSeek-V2
+                     decoder of `models/dsv2_text.py`)
 - `perceive`         raw 12-view RGB-D -> CLIP/depth features, waypoint
                      heatmap, NMS candidates, pano token embeddings
 - `score_navigation` padded graph tensors -> per-node action logits
@@ -14,10 +16,27 @@ trunk (`depth_resnet.encode_depth`, 53 convolutions and GroupNorms) as
 the replay of a CUDA graph per input signature (`ops/cuda_graph.py`),
 captured at the signature's first call: one graph launch where the
 eager trunk makes 1,328 kernel launches (R2R width, 96 images).
+
+With the DeepSeek-V2 encoder, `Agent` casts the decoder's matrices to
+the compute dtype in place (`dsv2_text.cast_matrices_`),
+`Agent.encode_text` is the span `agent.text_llm` (device-timed), and
+`text_stats()` counts the encodes, their valid tokens and the expert
+rows. On a CUDA device the encoder, whose shapes are all fixed by the
+(1, L) instruction and which reads nothing back to the host, is the
+replay of one CUDA graph per input signature, as the depth trunk is:
+one graph launch where the eager decoder makes ~1,300 kernel launches
+(27 layers), which otherwise hold the interpreter for longer than the
+device computes and so hold up the batcher's thread. While the tracer
+is on it runs eagerly, so that each of its attention and expert
+sublayers is a span (`agent.mla` / `agent.moe`) that times its own
+kernels; so too while torch.profiler records, in any thread (replays
+of this graph from the clients' threads under the profiler hung one
+traced serving run of four on an H100, for a cause not yet known).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -26,19 +45,38 @@ import torch.nn as nn
 
 from etpnav_tpu_torch.config import ExperimentConfig
 from etpnav_tpu_torch.device import resolve_device
-from etpnav_tpu_torch.models import clip_vit, depth_resnet, planner, waypoint
+from etpnav_tpu_torch.models import (
+    clip_vit,
+    depth_resnet,
+    dsv2_text,
+    planner,
+    waypoint,
+)
 from etpnav_tpu_torch.ops.basic import init_weights
 from etpnav_tpu_torch.ops.cuda_graph import CapturedGraphs
 from etpnav_tpu_torch.utils import logging as tracing
 
 
+def profiling() -> bool:
+    """Whether torch.profiler records, seen from any thread: the autograd
+    profiler's `_profiler_enabled()` answers for the calling thread
+    alone, the module's flag for the process."""
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        False)) or torch.autograd._profiler_enabled()
+
+
 class AgentParams(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
-        self.planner = planner.PlannerParams(cfg.planner)
+        llm = cfg.text_llm.enabled
+        self.planner = planner.PlannerParams(cfg.planner, text_stack=not llm)
         self.clip = clip_vit.ClipParams(cfg.clip)
         self.depth = depth_resnet.DepthParams(cfg.depth)
         self.waypoint = waypoint.WaypointParams(cfg.waypoint)
+        if llm:
+            dsv2_text.check_config(cfg.text_llm)
+            self.text_llm = dsv2_text.TextLLMParams(cfg.text_llm,
+                                                    cfg.planner.hidden_size)
 
 
 def init_agent_params(cfg: ExperimentConfig, seed: int = 0) -> AgentParams:
@@ -58,8 +96,13 @@ def _dtype(cfg: ExperimentConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def encode_text(params: AgentParams, cfg: ExperimentConfig,
-                txt_ids: torch.Tensor, txt_masks: torch.Tensor
-                ) -> torch.Tensor:
+                txt_ids: torch.Tensor, txt_masks: torch.Tensor,
+                counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, L) ids + mask -> (B, L, D) fp32 text memory. `counts` takes
+    the DeepSeek-V2 encoder's counters (`dsv2_text.encode`)."""
+    if cfg.text_llm.enabled:
+        return dsv2_text.encode(params.text_llm, cfg, txt_ids, txt_masks,
+                                counts)
     return planner.forward_txt(params.planner, cfg.planner, txt_ids,
                                txt_masks)
 
@@ -184,11 +227,31 @@ class Agent:
         self.device = resolve_device(device)
         if params is None:
             params = init_agent_params(cfg, cfg.seed)
+        if (cfg.text_llm.enabled and self.device.type == "cuda"
+                and not cfg.planner.use_bf16):
+            raise ValueError("the DeepSeek-V2 text encoder runs in bf16 on "
+                             "a CUDA device (K-MOE, and K-ATT at head width "
+                             "192, are bf16 kernels): set "
+                             "planner.use_bf16")
         self.params = params.to(self.device).eval().requires_grad_(False)
         depth_p, depth_cfg, dtype = self.params.depth, cfg.depth, _dtype(cfg)
         self._depth_graphs = CapturedGraphs(
             lambda d: depth_resnet.encode_depth(depth_p, depth_cfg, d,
                                                 dtype=dtype))
+        if cfg.text_llm.enabled:
+            dsv2_text.cast_matrices_(self.params.text_llm, dtype)
+            # a parameter loaded as a view of a larger buffer (one flat
+            # draw of every weight) gets a storage of its own, so that
+            # the buffer's fp32 copy of the cast matrices is freed
+            for t in [*self.params.parameters(), *self.params.buffers()]:
+                if t.untyped_storage().nbytes() > t.nbytes:
+                    t.data = t.data.clone()
+        self._text_graphs = CapturedGraphs(self._encode_llm)
+        # moe_rows, moe_groups, moe_rows_elsewhere, valid text tokens
+        self._text_counts = torch.zeros(4, dtype=torch.int64,
+                                        device=self.device)
+        self._text_encodes = 0
+        self._text_lock = threading.Lock()
 
     def _t(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -199,7 +262,43 @@ class Agent:
     def encode_text(self, txt_ids, txt_masks) -> torch.Tensor:
         with tracing.span("agent.upload", device=self.device):
             ids, mask = self._t(txt_ids).long(), self._t(txt_masks).bool()
-        return encode_text(self.params, self.cfg, ids, mask)
+        if not self.cfg.text_llm.enabled:
+            counts = torch.zeros(4, dtype=torch.int64, device=self.device)
+            counts[3] = mask.sum()
+            out = encode_text(self.params, self.cfg, ids, mask)
+        else:
+            x = torch.stack([ids, mask.long()])
+            graph = (CapturedGraphs.engages(x) and not tracing.is_on()
+                     and not profiling())
+            with tracing.span("agent.text_llm", device=self.device,
+                              graph=graph):
+                out, counts = (self._text_graphs(x) if graph
+                               else self._encode_llm(x))
+        with self._text_lock:         # encodes run on many client threads
+            self._text_encodes += 1
+            self._text_counts += counts
+        return out
+
+    def _encode_llm(self, x: torch.Tensor) -> tuple:
+        """The DeepSeek-V2 encoder on x = stack([ids, mask]) (2, B, L):
+        (text memory, its int64 (4,) counters)."""
+        counts = torch.zeros(4, dtype=torch.int64, device=x.device)
+        out = encode_text(self.params, self.cfg, x[0], x[1].bool(), counts)
+        return out, counts
+
+    def text_stats(self) -> dict:
+        """Instructions encoded, their valid tokens, and the DeepSeek-V2
+        encoder's expert rows: token-expert rows the held experts
+        computed (`moe_rows`), held experts with at least one row summed
+        over the expert-layer calls (`moe_groups`), and routings to
+        experts held elsewhere (`moe_rows_elsewhere`); 0 for BERT. Reads
+        device counters (waits for the device)."""
+        with self._text_lock:
+            encodes = self._text_encodes
+            rows, groups, elsewhere, tokens = self._text_counts.tolist()
+        return {"text_encodes": encodes, "text_tokens": tokens,
+                "moe_rows": rows, "moe_groups": groups,
+                "moe_rows_elsewhere": elsewhere}
 
     @torch.inference_mode()
     def perceive(self, rgb, depth,

@@ -49,7 +49,7 @@ import torch
 from etpnav_tpu_torch.config import ExperimentConfig, pick_bucket
 from etpnav_tpu_torch.device import resolve_device
 from etpnav_tpu_torch.metrics import aggregate
-from etpnav_tpu_torch.models import planner
+from etpnav_tpu_torch.models import dsv2_text, planner
 from etpnav_tpu_torch.ops.basic import checkpointed, dropout
 from etpnav_tpu_torch.parallel import mesh as meshlib
 from etpnav_tpu_torch.parallel.mesh import Mesh
@@ -454,7 +454,10 @@ class FinetuneTrainer:
         """`iters` rollout + learn iterations; returns the means of the
         loss, of the two phases' seconds and of the iteration's depth
         trunk counts (`Agent.depth_graph_stats`) over them. save_every:
-        checkpoint to self.ckpt_dir every N iterations."""
+        checkpoint to self.ckpt_dir every N iterations. Refuses a
+        configuration with the DeepSeek-V2 text encoder, which is
+        frozen."""
+        dsv2_text.refuse_training(self.cfg, "FinetuneTrainer.train")
         il = self.cfg.il
         iters = iters if iters is not None else il.iters
         for _ in range(iters):

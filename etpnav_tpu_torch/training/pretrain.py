@@ -49,7 +49,7 @@ from etpnav_tpu_torch.data.pretrain_data import (
     PretrainShapes,
 )
 from etpnav_tpu_torch.device import resolve_device
-from etpnav_tpu_torch.models import planner
+from etpnav_tpu_torch.models import dsv2_text, planner
 from etpnav_tpu_torch.models.planner import (
     ClsHead,
     LocalEncoder,
@@ -644,6 +644,7 @@ class PretrainTrainer:
                  seed: int = 0, num_scans: int = 8, scan_size: int = 24,
                  device="cuda", batches: Optional[Iterable] = None,
                  mesh: Optional[Mesh] = None):
+        dsv2_text.refuse_training(cfg, "PretrainTrainer")
         self.cfg = cfg
         self.shapes = shapes
         self.device = resolve_device(device)

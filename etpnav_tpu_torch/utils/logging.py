@@ -263,6 +263,11 @@ current_key = _TRACER.current_key
 export = _TRACER.export
 
 
+def is_on() -> bool:
+    """Whether the process's tracer is recording."""
+    return _TRACER.on
+
+
 class StepTimer:
     """Per-phase wall-clock accounting (rollout vs learn), with windowed
     means; each phase is also the span `train.<name>` while tracing is

@@ -78,6 +78,20 @@ def test_captured_graphs_run_cpu_tensors_eagerly():
     assert (g.replays, g.captures, g.eager_calls) == (0, 0, 0)
 
 
+def test_captured_graphs_copy_each_tensor_of_a_tuple():
+    from etpnav_tpu_torch.ops.cuda_graph import _apply
+    x = torch.arange(6.0)
+    out = _apply(torch.Tensor.clone, (x, x * 2))
+    assert isinstance(out, tuple) and len(out) == 2
+    assert torch.equal(out[0], x) and out[0].data_ptr() != x.data_ptr()
+    assert torch.equal(out[1], x * 2)
+    one = _apply(torch.Tensor.clone, x)
+    assert torch.is_tensor(one) and torch.equal(one, x)
+    g = CapturedGraphs(lambda t: (t + 1, t.sum()))
+    a, b = g(x)
+    assert torch.equal(a, x + 1) and b.item() == 15.0
+
+
 def test_server_stats_carry_the_depth_graph_counters(agent):
     cfg, ag = agent
     server = NavServer(cfg, ag, max_batch=2, max_wait_ms=5.0)
@@ -89,7 +103,8 @@ def test_server_stats_carry_the_depth_graph_counters(agent):
         assert {k: st[k] for k in ZERO} == ZERO
         assert {"steps_served", "batches", "failed_batches",
                 "deadline_batches", "mean_occupancy", "live_sessions",
-                "queue_depth", *ZERO} == st.keys()
+                "queue_depth", *ZERO, "text_encodes", "text_tokens",
+                "moe_rows", "moe_groups", "moe_rows_elsewhere"} == st.keys()
     finally:
         server.shutdown()
 

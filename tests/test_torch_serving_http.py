@@ -15,6 +15,7 @@ assertion depends on which side of the batcher's 0.05 s queue wait a
 request lands.
 """
 
+import dataclasses
 import json
 import socket
 import threading
@@ -322,3 +323,42 @@ def test_cli_serve_rejects_other_trainers(tmp_path):
         with pytest.raises(ValueError, match="SS-ETP"):
             run(["--exp-config", str(p), "--run-type", "serve",
                  "--device", "cpu", "--trainer", trainer])
+
+
+def test_cli_serve_dsv2_encoder_counters(tmp_path):
+    """TEXT_LLM.enabled serves the DeepSeek-V2 instruction encoder through
+    `run.py --run-type serve`, and `/stats` carries its text counters:
+    every routing of a session's encode goes to a held expert
+    (`moe_rows`) or elsewhere (`moe_rows_elsewhere`)."""
+    from etpnav_tpu_torch.config import tiny_dsv2_config
+    from etpnav_tpu_torch.run import run
+    c = tiny_dsv2_config().text_llm
+    p = tmp_path / "exp.yaml"
+    import yaml
+    p.write_text(yaml.safe_dump({"BASE": "tiny", "TEXT_LLM": {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in dataclasses.asdict(c).items()}}))
+    httpd, nav = run(["--exp-config", str(p), "--run-type", "serve",
+                      "--device", "cpu", "--host", "127.0.0.1", "--port",
+                      "0", "--serve-max-batch", "2", "--serve-nonblocking"])
+    try:
+        assert nav.cfg.text_llm == c
+        client = HttpNavClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        before = client.stats()
+        out = {}
+        _run_episode(client, nav.cfg, 12, out)
+        assert not isinstance(out[12], Exception), out[12]
+        stats = client.stats()
+        L, k = nav.cfg.il.max_text_len, c.num_experts_per_tok
+        n_moe = c.num_layers - c.first_k_dense_replace
+        assert stats["text_encodes"] - before["text_encodes"] == 1
+        assert 0 < stats["text_tokens"] - before["text_tokens"] <= L
+        assert (stats["moe_rows"] + stats["moe_rows_elsewhere"]
+                - before["moe_rows"] - before["moe_rows_elsewhere"]
+                == n_moe * L * k)
+        assert 0 < stats["moe_groups"] - before["moe_groups"] \
+            <= n_moe * len(c.held)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        nav.shutdown()
