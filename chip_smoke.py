@@ -63,23 +63,36 @@ Phases, each reported on its own lines:
      what the served programs make (16 K-ATT per perceive, 8 per
      navigation scoring, 9 per instruction; 1 K-NMS per perceive; no K-GN
      or K-PRENORM) and no plain version may be called; the ops per
-     perceive, beside the same perceive with the candidate slots taken by
-     the `extract_candidates` chain: fewer by exactly that chain's ops,
-     counted by the dispatcher (torch.profiler's device ops beside them);
+     eager perceive, beside the same perceive with the candidate slots
+     taken by the `extract_candidates` chain: fewer by exactly that
+     chain's ops, counted by the dispatcher (torch.profiler's device ops
+     beside them);
   4b. the same with the fused perception configuration
      (`DepthEncoderConfig.use_fused_gn`, `ClipConfig.use_fused_block`):
      54 K-GN and 11 K-PRENORM launches per perceive, K-ATT 5 per perceive;
      then perceive at B = 8, default and fused configuration in turns;
-     every served perceive replays the depth trunk's CUDA graph, which
-     warmup() captured;
+     every served perceive replays the whole perceive's CUDA graph, which
+     warmup() captured (its warm-up run captured the depth trunk's graph,
+     its capture ran the trunk eagerly into it: no served batch replays
+     the depth graph);
   4c. the depth trunk as CUDA graphs (`Agent`, `ops/cuda_graph.py`), in
      the default and the fused configuration: at (96, 128, 128, 1) the
      capture's output and each replay bit-equal to the eager
      `encode_depth`, and again after new weights are copied into the
      parameters in place; (12, 128, 128, 1) captures a second graph; the
-     agent's counters exact; K-GN 54 launches per replay (fused); a
-     whole perceive equal to the eager one, with the launch calls of
-     each from torch.profiler and their times;
+     agent's counters exact; K-GN 54 launches per replay (fused); the
+     agent's eager perceive (the trunk by graph) equal to the module's
+     all-eager one, with the launch calls of each from torch.profiler
+     and their times;
+  4d. the whole perceive as one CUDA graph (`Agent.perceive`) at R2R
+     width, B = 8, default configuration: the capture's output, each
+     replay, and a replay after new weights are copied in place, bit-equal
+     on every output key to the agent's eager perceive (the largest
+     difference of each key logged where one is not); the agent's
+     counters exact, the gate declining under torch.profiler, the tracer
+     and a generator; the port's launch counters per perceive eager and
+     replayed, the launch calls of each from torch.profiler, and the
+     wall ms of each between CUDA events and in turns;
   5. slice parity: `perceive` + `score_navigation` at full R2R width in
      fp32 on the card (kernels) against the CPU (plain versions);
   5b. the same for the fused configuration;
@@ -87,7 +100,9 @@ Phases, each reported on its own lines:
      device="cuda")` trains 2 iterations (rollout + bucketed learn step);
      exact launch counts (the rollout's programs as in phase 4, and 19
      K-ATT + 19 K-ATT-BWD per learn step), no plain call, a finite loss,
-     trained parameters moved and the frozen towers did not; the learn
+     trained parameters moved and the frozen towers did not; every
+     rollout perceive eager (the waypoint augmentation's generator), its
+     depth trunk captured once and replayed after; the learn
      step p50 at (T20, G64) and (T20, G96), the peak memory, and one
      profiled learn step;
   7b. the learn step's loss and every planner gradient at full R2R width
@@ -1334,6 +1349,21 @@ def timed(fn, sink: list):
     return wrapper
 
 
+GRAPH_COUNTERS = ("perceive_graph_replays", "perceive_eager_calls",
+                  "perceive_graph_captures", "depth_graph_replays",
+                  "depth_eager_calls", "depth_graph_captures")
+
+
+def eager_perceive_of(agent):
+    """`agent.perceive` as its gate runs it where it declines the graph
+    (a generator, the tracer, the profiler): eager, the depth trunk by
+    its own graph; counted in `perceive_eager_calls`."""
+    @torch.inference_mode()
+    def run(rgb, dep):
+        return agent._perceive_graphs.eager(agent._t(rgb), agent._t(dep))
+    return run
+
+
 def serve(card: str, cfg, params, counters) -> dict:
     from etpnav_tpu_torch.serving import NavServer
     from etpnav_tpu_torch.training.agent import Agent
@@ -1417,14 +1447,15 @@ def serve(card: str, cfg, params, counters) -> dict:
         server.shutdown()
     if stats["steps_served"] < target:
         raise AssertionError(f"slice: {stats['steps_served']} steps served")
-    # warmup() captured the depth trunk's graph; every served perceive
-    # replayed it
-    graphs = {k: stats[k] for k in ("depth_graph_replays",
-                                    "depth_eager_calls",
-                                    "depth_graph_captures")}
-    if graphs != {"depth_graph_replays": len(perceive_ms),
-                  "depth_eager_calls": 0, "depth_graph_captures": 1}:
-        raise AssertionError(f"slice: depth graph counters {graphs} for "
+    # warmup() captured the whole perceive's graph, whose warm-up run
+    # captured the depth trunk's and whose capture ran the trunk eagerly
+    # into it; every served perceive replayed the perceive graph alone
+    graphs = {k: stats[k] for k in GRAPH_COUNTERS}
+    if graphs != {"perceive_graph_replays": len(perceive_ms),
+                  "perceive_eager_calls": 0, "perceive_graph_captures": 1,
+                  "depth_graph_replays": 0, "depth_eager_calls": 1,
+                  "depth_graph_captures": 1}:
+        raise AssertionError(f"slice: graph counters {graphs} for "
                              f"{len(perceive_ms)} perceive calls")
     res = {"steps": stats["steps_served"], "batches": stats["batches"],
            "sessions": state["sessions"],
@@ -1479,11 +1510,13 @@ def dispatched_ops(fn) -> int:
 
 
 def perceive_ops(card: str, agent, rgb, dep) -> dict:
-    """Ops per perceive with K-NMS writing the candidate slots, against
-    the same perceive with the slots taken by the `extract_candidates`
-    chain from K-NMS's map (the earlier path), and that chain's own ops:
-    the first must be the second less the third, counted exactly by the
-    dispatcher; the device ops of each from torch.profiler beside them."""
+    """Ops per eager perceive with K-NMS writing the candidate slots,
+    against the same perceive with the slots taken by the
+    `extract_candidates` chain from K-NMS's map (the earlier path), and
+    that chain's own ops: the first must be the second less the third,
+    counted exactly by the dispatcher; the device ops of each from
+    torch.profiler beside them. Eager: a replay of the perceive graph
+    dispatches its copies alone and would not see the chain patched in."""
     from etpnav_tpu_torch.models import waypoint
     from etpnav_tpu_torch.ops.nms import extract_candidates
     fused = waypoint.heatmap_nms_fused
@@ -1493,9 +1526,10 @@ def perceive_ops(card: str, agent, rgb, dep) -> dict:
         return (nms_map,) + tuple(extract_candidates(nms_map[:, 1:-1], k))
 
     nms_map = torch.rand(8, 122, 12, device=agent.device)
+    eager = eager_perceive_of(agent)
 
     def perceive():
-        agent.perceive(rgb, dep)
+        eager(rgb, dep)
 
     def chain():
         extract_candidates(nms_map[:, 1:-1], 5)
@@ -1715,15 +1749,13 @@ def train_phase(card: str, cfg, counters) -> dict:
                              f"{dict(calls)} and {iters} learn steps")
     if not np.isfinite(tr.logs["IL_loss"]).all():
         raise AssertionError(f"train: loss {tr.logs['IL_loss']}")
-    # the first rollout step captured the depth trunk's graph at the
-    # rollout's one shape; every later perceive replayed it
-    graphs = [sum(tr.logs[k]) for k in ("depth_graph_replays",
-                                        "depth_eager_calls",
-                                        "depth_graph_captures")]
-    if graphs != [calls["perceive"] - 1, 0, 1]:
-        raise AssertionError(f"train: depth graph replays, eager calls, "
-                             f"captures {graphs} for {calls['perceive']} "
-                             "perceive calls")
+    # the rollout's waypoint augmentation passes a generator, so every
+    # perceive ran eagerly: the first captured the depth trunk's graph at
+    # the rollout's one shape, every later one replayed it
+    graphs = [sum(tr.logs[k]) for k in GRAPH_COUNTERS]
+    if graphs != [0, calls["perceive"], 0, calls["perceive"] - 1, 0, 1]:
+        raise AssertionError(f"train: {GRAPH_COUNTERS} {graphs} for "
+                             f"{calls['perceive']} perceive calls")
     moved = still = 0
     for n, p in planner.named_parameters():
         if not torch.equal(p, before[n]):
@@ -5401,8 +5433,11 @@ def depth_graph_phase(card: str, cfg, host_params) -> dict:
     captures a second graph; the agent's counters read every capture and
     replay; under `use_fused_gn` K-GN's launch counter rises by 54 per
     replay and by 54 at a capture (the warm-up's launches; the capture
-    launches nothing). Then a whole perceive, graph against eager: equal
-    outputs, the launch calls of each (torch.profiler) and their times."""
+    launches nothing). Then the agent's eager perceive (the path its gate
+    takes under a generator, the tracer or the profiler: the trunk by
+    graph) against the module's all-eager perceive: equal outputs, the
+    launch calls of each (torch.profiler) and their times. The whole
+    perceive's own graph is phase 4d's."""
     from etpnav_tpu_torch.models import depth_resnet
     from etpnav_tpu_torch.ops import fused_groupnorm
     from etpnav_tpu_torch.training import agent as agent_mod
@@ -5472,30 +5507,34 @@ def depth_graph_phase(card: str, cfg, host_params) -> dict:
         expect({"depth_graph_replays": 5, "depth_eager_calls": 0,
                 "depth_graph_captures": 2}, "after B = 12")
 
-        # a whole perceive: the agent's (graph) against the module's
-        # (eager trunk), bit for bit, their launch calls and times
+        # a whole perceive: the agent's eager one (trunk by graph)
+        # against the module's (eager trunk), bit for bit, their launch
+        # calls and times
         @torch.inference_mode()
         def eager_perceive():
             return agent_mod.perceive(agent.params, c, rgb, dep)
 
-        def graph_perceive():
-            return agent.perceive(rgb, dep)
+        agent_eager = eager_perceive_of(agent)
 
-        got, ref = graph_perceive(), eager_perceive()
+        def trunk_graph_perceive():
+            return agent_eager(rgb, dep)
+
+        got, ref = trunk_graph_perceive(), eager_perceive()
         for k in ref:
             if not torch.equal(got[k], ref[k]):
                 raise AssertionError(f"depth graph {name}: perceive's {k} "
                                      "differs from the eager perceive")
         launches = {"perceive_eager": launch_calls(eager_perceive),
-                    "perceive_graph": launch_calls(graph_perceive),
+                    "perceive_trunk_graph": launch_calls(
+                        trunk_graph_perceive),
                     "trunk_eager": launch_calls(lambda: eager(d96)),
                     "trunk_graph": launch_calls(lambda: graphed(d96))}
         if launches["trunk_graph"]["graph"] != 1 or \
-                launches["perceive_graph"]["graph"] != 1:
+                launches["perceive_trunk_graph"]["graph"] != 1:
             raise AssertionError(f"depth graph {name}: graph launches "
                                  f"{launches}")
         times = host_ms({"perceive_eager": eager_perceive,
-                         "perceive_graph": graph_perceive,
+                         "perceive_trunk_graph": trunk_graph_perceive,
                          "trunk_eager": lambda: eager(d96),
                          "trunk_graph": lambda: graphed(d96)})
         res[name] = {"launches": launches, "times": times,
@@ -5505,6 +5544,167 @@ def depth_graph_phase(card: str, cfg, host_params) -> dict:
         del agent, outs, got, ref
         torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the whole Agent.perceive as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def perceive_graph_phase(card: str, cfg, host_params, counters) -> dict:
+    """Phase 4d: `Agent.perceive` (R2R width, B = 8, the default
+    configuration) as the replay of one CUDA graph. The capture's output,
+    three replays and a replay after new weights are copied into every
+    parameter in place equal the agent's eager perceive on every output
+    key, bit for bit (a key that is not: its largest difference logged,
+    then raised); under torch.profiler, with the tracer on and with a
+    generator the gate runs eagerly; the agent's counters are exact
+    throughout. Then the port's launch counters per perceive, eager and
+    replayed (equal: a replay counts what the capture recorded), the
+    launch calls of each from torch.profiler, and the ms of each: 30
+    calls between CUDA events on inputs already on the card, and the
+    agent's call on host arrays in turns (A B B A)."""
+    from etpnav_tpu_torch.training import agent as agent_mod
+    from etpnav_tpu_torch.utils import logging as tracing
+    params = copy.deepcopy(host_params)
+    gen = torch.Generator().manual_seed(23)
+    H, Hd = cfg.clip.image_size, cfg.depth.input_size
+    rgb = torch.randint(0, 256, (8, 12, H, H, 3), generator=gen,
+                        dtype=torch.uint8).cuda()
+    dep = torch.rand(8, 12, Hd, Hd, 1, generator=gen).cuda()
+    agent = agent_mod.Agent(cfg, params, device="cuda")
+    eager = eager_perceive_of(agent)
+    calls = collections.Counter()
+
+    def expect(what: str) -> None:
+        got = {**agent.perceive_graph_stats(), **agent.depth_graph_stats()}
+        want = {"perceive_graph_replays": calls["replay"],
+                "perceive_eager_calls": calls["eager"],
+                "perceive_graph_captures": 1,
+                # the first eager call captured the trunk's graph; the
+                # capture's warm-up run replayed it, the capture itself
+                # ran the trunk eagerly into the perceive graph
+                "depth_graph_replays": calls["eager"],
+                "depth_eager_calls": 1, "depth_graph_captures": 1}
+        if got != want:
+            raise AssertionError(f"perceive graph {what}: counters {got} != "
+                                 f"{want}")
+
+    def same(got: dict, want: dict, what: str) -> None:
+        diff = {}
+        for k in want:
+            a, b = got[k], want[k]
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not torch.equal(a, b)):
+                diff[k] = ((a.double() - b.double()).abs().max().item()
+                           if a.shape == b.shape else "shape")
+        if list(got) != list(want) or diff:
+            log(f"perceive graph {what}: keys {list(got)}; largest "
+                f"difference from eager per key {diff} [{card}]")
+            raise AssertionError(f"perceive graph {what}: not bit equal to "
+                                 f"the eager perceive on {sorted(diff)}")
+
+    want = eager(rgb, dep)
+    calls["eager"] += 1
+    outs = [agent.perceive(rgb, dep)]                 # the capture
+    outs += [agent.perceive(rgb, dep) for _ in range(3)]
+    calls["replay"] += 3
+    sync()
+    expect("after the capture and 3 replays")
+    for i, got in enumerate(outs):
+        same(got, want, f"call {i}")
+    with torch.no_grad():
+        for t in agent.params.parameters():
+            t.mul_(1.0 + 0.05 * torch.randn(t.shape, generator=gen).to(t))
+    want_new = eager(rgb, dep)
+    calls["eager"] += 1
+    if torch.equal(want_new["pano_embeds"], want["pano_embeds"]):
+        raise AssertionError("perceive graph: new weights left the pano "
+                             "embeddings as they were")
+    same(agent.perceive(rgb, dep), want_new, "after new weights in place")
+    calls["replay"] += 1
+    # the gate: each of these runs eagerly
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        same(agent.perceive(rgb, dep), want_new, "under the profiler")
+    tracing.enable()
+    try:
+        same(agent.perceive(rgb, dep), want_new, "with the tracer on")
+    finally:
+        tracing.disable()
+    agent.perceive(rgb, dep, torch.Generator(device="cuda").manual_seed(1))
+    calls["eager"] += 3
+    sync()
+    expect("after the gate's three eager calls")
+
+    def per_call(fn) -> dict:
+        sync()
+        before = {k: c.value for k, c in counters.items()}
+        fn()
+        sync()
+        return {k: c.value - before[k] for k, c in counters.items()
+                if c.value != before[k]}
+
+    @torch.inference_mode()
+    def replay():
+        return agent._perceive_graphs(rgb, dep)
+
+    port = {"eager": per_call(lambda: eager(rgb, dep)),
+            "replay": per_call(replay)}
+    want_port = PER_CALL["default"]["perceive"]
+    if port["eager"] != want_port or port["replay"] != want_port:
+        raise AssertionError(f"perceive graph: the port's launches per call "
+                             f"{port}, want {want_port} each")
+    launches = {"eager": launch_calls(lambda: eager(rgb, dep)),
+                "replay": launch_calls(replay)}
+    if launches["replay"] != {"kernel": 0, "graph": 1}:
+        raise AssertionError(f"perceive graph: a replay's launch calls "
+                             f"{launches['replay']}")
+    ms = {"eager": cuda_ms(lambda: eager(rgb, dep), iters=30, warmup=3),
+          "replay": cuda_ms(replay, iters=30, warmup=3)}
+    rgb_h, dep_h = rgb.cpu().numpy(), dep.cpu().numpy()
+    turns = host_ms({"eager": lambda: eager(rgb_h, dep_h),
+                     "replay": lambda: agent.perceive(rgb_h, dep_h)})
+    res = {"port_launches": port, "launch_calls": launches,
+           "cuda_event_ms": ms, "host_ms_in_turns": turns,
+           "stats": {**agent.perceive_graph_stats(),
+                     **agent.depth_graph_stats()}}
+    log(f"perceive graph: replays bit-equal to eager on every key; "
+        f"{json.dumps(res)} [{card}]")
+    del agent, outs, want, want_new
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_counters() -> dict:
+    """The port's launch and plain-call counters, by kernel name."""
+    from etpnav_tpu_torch.ops import (
+        fused_attention,
+        fused_block,
+        fused_groupnorm,
+        fused_nms,
+        fused_prenorm,
+    )
+    return {"attention_fwd": fused_attention.attention_fwd_launches,
+            "attention_plain": fused_attention.attention_plain_calls,
+            "heatmap_nms_fused": fused_nms.heatmap_nms_launches,
+            "heatmap_nms_plain": fused_nms.heatmap_nms_plain_calls,
+            "group_norm_fused": fused_groupnorm.group_norm_launches,
+            "group_norm_plain": fused_groupnorm.group_norm_plain_calls,
+            "prenorm_attention":
+                fused_prenorm.prenorm_attention_launches,
+            "prenorm_attention_plain":
+                fused_prenorm.prenorm_attention_plain_calls,
+            "attention_bwd": fused_attention.attention_bwd_launches,
+            "attention_bwd_plain":
+                fused_attention.attention_bwd_plain_calls,
+            "attention_fwd_head_out":
+                fused_attention.attention_fwd_head_out_launches,
+            "attention_cheap": fused_attention.attention_cheap_launches,
+            "attention_cheap_plain":
+                fused_attention.attention_cheap_plain_calls,
+            "attention_block": fused_block.attention_block_launches,
+            "attention_block_plain":
+                fused_block.attention_block_plain_calls}
 
 
 T0 = time.perf_counter()
@@ -5740,14 +5940,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from etpnav_tpu_torch.config import r2r_config, rxr_config
-    from etpnav_tpu_torch.ops import (
-        cuda_build,
-        fused_attention,
-        fused_block,
-        fused_groupnorm,
-        fused_nms,
-        fused_prenorm,
-    )
+    from etpnav_tpu_torch.ops import cuda_build
     from etpnav_tpu_torch.training.agent import init_agent_params
 
     # phase 1
@@ -5808,27 +6001,7 @@ def main() -> int:
     trap = check_barrier_trap(card, trap_build)
     trap_tmp.cleanup()
 
-    counters = {"attention_fwd": fused_attention.attention_fwd_launches,
-                "attention_plain": fused_attention.attention_plain_calls,
-                "heatmap_nms_fused": fused_nms.heatmap_nms_launches,
-                "heatmap_nms_plain": fused_nms.heatmap_nms_plain_calls,
-                "group_norm_fused": fused_groupnorm.group_norm_launches,
-                "group_norm_plain": fused_groupnorm.group_norm_plain_calls,
-                "prenorm_attention":
-                    fused_prenorm.prenorm_attention_launches,
-                "prenorm_attention_plain":
-                    fused_prenorm.prenorm_attention_plain_calls,
-                "attention_bwd": fused_attention.attention_bwd_launches,
-                "attention_bwd_plain":
-                    fused_attention.attention_bwd_plain_calls,
-                "attention_fwd_head_out":
-                    fused_attention.attention_fwd_head_out_launches,
-                "attention_cheap": fused_attention.attention_cheap_launches,
-                "attention_cheap_plain":
-                    fused_attention.attention_cheap_plain_calls,
-                "attention_block": fused_block.attention_block_launches,
-                "attention_block_plain":
-                    fused_block.attention_block_plain_calls}
+    counters = launch_counters()
     log(f"phase 3 done at {time.perf_counter() - T0:.0f} s")
     # phase 4
     t0 = time.perf_counter()
@@ -5848,6 +6021,9 @@ def main() -> int:
     # phase 4c
     depth_graph = depth_graph_phase(card, cfg, host_params)
     log(f"phase 4c done at {time.perf_counter() - T0:.0f} s")
+    # phase 4d
+    perceive_graph = perceive_graph_phase(card, cfg, host_params, counters)
+    log(f"phase 4d done at {time.perf_counter() - T0:.0f} s")
     # phase 5
     cfg32 = r2r_config(planner=dataclasses.replace(cfg.planner,
                                                   use_bf16=False))
@@ -6117,13 +6293,20 @@ def main() -> int:
     for name, r in depth_graph.items():
         t, n = r["times"], r["launches"]
         log(f"depth graph {name} (B=8): perceive p50 eager "
-            f"{t['perceive_eager']['p50_ms']:.2f} ms, graph "
-            f"{t['perceive_graph']['p50_ms']:.2f} ms; trunk eager "
+            f"{t['perceive_eager']['p50_ms']:.2f} ms, trunk by graph "
+            f"{t['perceive_trunk_graph']['p50_ms']:.2f} ms; trunk eager "
             f"{t['trunk_eager']['p50_ms']:.2f} ms, graph "
             f"{t['trunk_graph']['p50_ms']:.2f} ms; kernel launch calls per "
             f"perceive {n['perceive_eager']['kernel']} eager, "
-            f"{n['perceive_graph']['kernel']} + "
-            f"{n['perceive_graph']['graph']} graph [{card}]")
+            f"{n['perceive_trunk_graph']['kernel']} + "
+            f"{n['perceive_trunk_graph']['graph']} graph [{card}]")
+    pg_n, pg_t = perceive_graph["launch_calls"], perceive_graph[
+        "host_ms_in_turns"]
+    log(f"perceive graph (B=8): p50 eager {pg_t['eager']['p50_ms']:.2f} "
+        f"ms, replayed {pg_t['replay']['p50_ms']:.2f} ms; kernel launch "
+        f"calls {pg_n['eager']['kernel']} + {pg_n['eager']['graph']} graph "
+        f"eager, {pg_n['replay']['kernel']} + {pg_n['replay']['graph']} "
+        f"graph replayed [{card}]")
     ls = train_res["learn_step"]
     log(f"learn step p50 (T20, G64) {ls['T20_G64']['p50_ms']:.2f} ms, "
         f"(T20, G96) {ls['T20_G96']['p50_ms']:.2f} ms; peak "

@@ -20,7 +20,7 @@ package's tree layout (`models/convert.py`), where the patch conv's
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,18 +139,30 @@ def encode_image(params: ClipParams, cfg: ClipConfig, images: torch.Tensor,
     return _trunk(params, cfg, x, dtype)
 
 
+def fold_vectors(patch_size: int, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(s, t), the fp32 (ps*ps*3,) vectors of the CLIP normalisation on
+    a flattened raw patch, n = p * s + t, on `device`."""
+    n = patch_size * patch_size
+    s = torch.from_numpy(np.tile(1.0 / (255.0 * CLIP_STD), n)).to(device)
+    t = torch.from_numpy(np.tile(-CLIP_MEAN / CLIP_STD, n)).to(device)
+    return s, t
+
+
 def encode_image_uint8(params: ClipParams, cfg: ClipConfig,
                        rgb_uint8: torch.Tensor,
-                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                       dtype: torch.dtype = torch.bfloat16,
+                       fold: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                       = None) -> torch.Tensor:
     """(B, H, W, 3) raw uint8 -> (B, output_dim) fp32, with the CLIP
     normalisation folded into the patch matmul: n @ W = p @ (s*W) + t @ W.
     The fold happens in fp32 and then casts to `dtype`; the patch product
-    is taken in fp32, the fp32 fold bias added, and rounded once."""
+    is taken in fp32, the fp32 fold bias added, and rounded once. `fold`
+    is `fold_vectors` on the images' device, made by the caller once
+    (an upload from pageable memory waits for the device, and a CUDA
+    graph cannot capture it); without it they are uploaded here."""
     ps = cfg.patch_size
-    dev = rgb_uint8.device
-    s = torch.from_numpy(np.tile(1.0 / (255.0 * CLIP_STD),
-                                 ps * ps)).to(dev)
-    t = torch.from_numpy(np.tile(-CLIP_MEAN / CLIP_STD, ps * ps)).to(dev)
+    s, t = fold if fold is not None else fold_vectors(ps, rgb_uint8.device)
     w = params.patch_embed.float()
     w_folded = (s[:, None] * w).to(dtype)
     b_folded = torch.matmul(t, w)

@@ -57,16 +57,27 @@ class WaypointParams(nn.Module):
         self.vis_classifier = VisClassifier(cfg.hidden_size, per_img_out)
 
 
+def neighbor_bias(cfg: WaypointConfig, device) -> torch.Tensor:
+    """(1, 1, V, V) fp32 additive attention bias of the TRM's circular
+    neighbour mask, on `device`."""
+    mask = torch.from_numpy(
+        circular_neighbor_mask(cfg.num_images, cfg.neighbor).astype(bool))
+    return mask_to_bias(mask.to(device))[None, None, :, :]
+
+
 def waypoint_heatmap(params: WaypointParams, cfg: WaypointConfig,
-                     depth_feats: torch.Tensor) -> torch.Tensor:
+                     depth_feats: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """depth_feats (B, 12, *depth_feat_shape) -> (B, 120, 12) logits,
-    rotated so each image points at the middle of its sector."""
+    rotated so each image points at the middle of its sector. `bias` is
+    `neighbor_bias` on the features' device, made by the caller once (an
+    upload from pageable memory waits for the device, and a CUDA graph
+    cannot capture it); without it the mask is uploaded here."""
     B = depth_feats.shape[0]
     x = depth_feats.reshape(B, cfg.num_images, -1)
     x = F.relu(params.visual_fc_depth(x))
-    mask = torch.from_numpy(
-        circular_neighbor_mask(cfg.num_images, cfg.neighbor).astype(bool))
-    bias = mask_to_bias(mask.to(x.device))[None, None, :, :]
+    if bias is None:
+        bias = neighbor_bias(cfg, x.device)
     dims = BertDims(cfg.hidden_size, cfg.num_heads, cfg.hidden_size * 4,
                     cfg.layer_norm_eps)
     x = bert_stack(params.waypoint_trm, x, bias, dims)

@@ -131,7 +131,12 @@ class NavServer:
         encoder, perception, and one navigation-scoring call per
         gmap-length bucket (plus the full length). The first call builds
         the CUDA kernels and grows the allocator's pools, and perception
-        captures the depth trunk's CUDA graph at the static batch;
+        captures the whole perceive as one CUDA graph at the static batch
+        (`Agent.perceive`: two inputs, rgb and depth, whose shapes,
+        strides and dtypes key the graph; its warm-up run captures the
+        depth trunk's own graph, which the eager perceive of a traced or
+        profiled stretch replays). Every served batch is padded to
+        `max_batch`, so it replays that one graph whatever its load;
         calling this at deploy time keeps all of it out of live request
         latency. Returns the number of programs warmed."""
         cfg = self.cfg
@@ -265,9 +270,11 @@ class NavServer:
         always padded to max_batch), live sessions, and current queue
         depth. Counters reflect SUCCESSFUL batches only — a failing
         dispatch poisons its sessions and increments failed_batches
-        instead. The agent's depth-trunk counters
-        (`Agent.depth_graph_stats`) come with them: depth_graph_replays,
-        depth_eager_calls, depth_graph_captures; and its text counters
+        instead. The agent's graph counters come with them: the whole
+        perceive's (`Agent.perceive_graph_stats`: perceive_graph_replays,
+        perceive_eager_calls, perceive_graph_captures), the depth
+        trunk's (`Agent.depth_graph_stats`: depth_graph_replays,
+        depth_eager_calls, depth_graph_captures); and its text counters
         (`Agent.text_stats`): text_encodes, text_tokens, and the
         DeepSeek-V2 encoder's moe_rows, moe_groups, moe_rows_elsewhere.
         The text counters are device counters, so this call waits for
@@ -284,6 +291,7 @@ class NavServer:
                 "mean_occupancy": round(occ, 4),
                 "live_sessions": live,
                 "queue_depth": self._queue.qsize(),
+                **self.agent.perceive_graph_stats(),
                 **self.agent.depth_graph_stats(),
                 **self.agent.text_stats()}
 

@@ -11,11 +11,22 @@ the three device programs of a navigation step, in eager PyTorch.
 The pano token layout is fixed: K candidate slots then 12 view slots,
 with validity masks. `Agent` takes the place of `JittedAgent`: it holds
 the parameters on one device, accepts numpy or tensors, and returns
-tensors on that device. On a CUDA device its `perceive` runs the depth
-trunk (`depth_resnet.encode_depth`, 53 convolutions and GroupNorms) as
-the replay of a CUDA graph per input signature (`ops/cuda_graph.py`),
-captured at the signature's first call: one graph launch where the
-eager trunk makes 1,328 kernel launches (R2R width, 96 images).
+tensors on that device. On a CUDA device its `perceive` without a
+generator (serving, eval) is the replay of one CUDA graph per input
+signature (`ops/cuda_graph.py`; rgb's and depth's shapes, strides and
+dtypes), captured at the signature's first call: the CLIP tower, the
+depth trunk, the waypoint heatmap, K-NMS's candidate slots, the gathers
+and the pano encoder in one graph launch, where the eager perceive
+makes ~2,300 kernel launches (R2R width, B = 8) and reads nothing back
+to the host. Its constants (`perceive_constants`) are uploaded once,
+when the agent is built. The gate is what perceive can observe: a
+generator (the train-time waypoint augmentation), the tracer on, or
+torch.profiler recording in any thread (`profiling()`) run it eagerly,
+so that spans and profiles see its kernels one by one; the eager
+perceive still runs the depth trunk (`depth_resnet.encode_depth`, 53
+convolutions and GroupNorms) as a CUDA graph of its own, one graph
+launch where the eager trunk makes 1,328 kernel launches (96 images).
+Inside the perceive graph's capture the trunk runs eagerly into it.
 
 With the DeepSeek-V2 encoder, `Agent` casts the decoder's matrices to
 the compute dtype in place (`dsv2_text.cast_matrices_`),
@@ -36,6 +47,7 @@ traced serving run of four on an H100, for a cause not yet known).
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Callable, Optional
 
@@ -63,6 +75,15 @@ def profiling() -> bool:
     alone, the module's flag for the process."""
     return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
                         False)) or torch.autograd._profiler_enabled()
+
+
+def replays_graph(*xs: torch.Tensor) -> bool:
+    """Whether a program call on `xs` may replay its CUDA graph: the
+    tensors are on a CUDA device outside a capture, and neither the
+    tracer nor torch.profiler (in any thread) is on, so that spans and
+    profiles see the kernels one by one."""
+    return (CapturedGraphs.engages(*xs) and not tracing.is_on()
+            and not profiling())
 
 
 class AgentParams(nn.Module):
@@ -107,28 +128,45 @@ def encode_text(params: AgentParams, cfg: ExperimentConfig,
                                txt_masks)
 
 
+def perceive_constants(cfg: ExperimentConfig, device) -> dict:
+    """The constant tensors of perceive on `device`: CLIP's normalisation
+    fold vectors, the waypoint TRM's neighbour bias and the (12, 4) pano
+    view angle features. A caller that perceives again makes them once
+    and passes them (`Agent` does): each is an upload from pageable host
+    memory, which waits for the device and which a CUDA graph cannot
+    capture."""
+    return {"clip_fold": clip_vit.fold_vectors(cfg.clip.patch_size, device),
+            "neighbor_bias": waypoint.neighbor_bias(cfg.waypoint, device),
+            "pano_loc": torch.from_numpy(
+                waypoint.pano_angle_features()).to(device)}
+
+
 def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
                     rgb: torch.Tensor, depth: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     train_sampling: bool = False,
-                    depth_trunk: Optional[Callable] = None) -> dict:
+                    depth_trunk: Optional[Callable] = None,
+                    consts: Optional[dict] = None) -> dict:
     """rgb (B, 12, H, W, 3) uint8, counter-clockwise views, view 0
     forward; depth (B, 12, Hd, Wd, 1) float in [0,1] or uint16. Returns
     pano token features + K candidate slots + the heatmap. With
     `train_sampling`, the candidates are re-drawn inside their sectors
     from `generator` (the waypoint augmentation). `depth_trunk`, given,
     maps the (B*12, Hd, Wd, 1) fp32 depth to what `encode_depth` returns
-    for it (the `Agent`'s CUDA graphs)."""
+    for it (the `Agent`'s CUDA graphs). `consts` is `perceive_constants`
+    on rgb's device; without it they are uploaded here."""
     wcfg = cfg.waypoint
     B, V = rgb.shape[:2]
     dtype = _dtype(cfg)
+    if consts is None:
+        consts = perceive_constants(cfg, rgb.device)
     if depth.dtype == torch.uint16:
         # uint16 transport: the host quantized [0,1] depth
         depth = depth.to(torch.float32) * (1.0 / 65535.0)
 
-    rgb_feats = clip_vit.encode_image_uint8(
+    rgb_feats = clip_vit.encode_image_uint8(                 # (B,12,512)
         params.clip, cfg.clip, rgb.reshape((B * V,) + rgb.shape[2:]),
-        dtype=dtype).reshape(B, V, -1)                       # (B,12,512)
+        dtype=dtype, fold=consts["clip_fold"]).reshape(B, V, -1)
     depth = depth.reshape((B * V,) + depth.shape[2:])
     if depth_trunk is None:
         dep_spatial = depth_resnet.encode_depth(params.depth, cfg.depth,
@@ -141,7 +179,8 @@ def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
     dep_chw = dep_spatial.permute(0, 3, 1, 2).reshape(B, V, c, s, s)
     cw = torch.cat([dep_chw[:, :1], dep_chw[:, 1:].flip(1)], dim=1)
     heatmap = waypoint.waypoint_heatmap(params.waypoint, wcfg,
-                                        cw.reshape(B, V, -1))
+                                        cw.reshape(B, V, -1),
+                                        consts["neighbor_bias"])
     dep_pooled = dep_spatial.reshape(B, V, s * s, c).mean(2)  # (B,12,C)
 
     cands = waypoint.heatmap_to_candidates(wcfg, heatmap)
@@ -154,8 +193,7 @@ def encode_panorama(params: AgentParams, cfg: ExperimentConfig,
     cand_dep = torch.gather(
         dep_pooled, 1, img_idx[..., None].expand(-1, -1, c))
 
-    pano_loc = torch.from_numpy(waypoint.pano_angle_features()).to(
-        rgb_feats.device)                                     # (12,4)
+    pano_loc = consts["pano_loc"]                             # (12,4)
     covered = torch.zeros(B, V, device=rgb_feats.device).scatter_reduce(
         1, img_idx, cands["valid"].float(), reduce="amax") > 0
     return {
@@ -195,16 +233,25 @@ def score_navigation(params: AgentParams, cfg: ExperimentConfig,
         gmap["visited"], gmap["pair_dists"])
 
 
+def _traced_trunk(graphs: CapturedGraphs, device: torch.device,
+                  depth: torch.Tensor) -> torch.Tensor:
+    """The depth trunk through `graphs`, as the span `agent.depth`."""
+    with tracing.span("agent.depth", device=device,
+                      graph=CapturedGraphs.engages(depth)):
+        return graphs(depth)
+
+
 def perceive(params: AgentParams, cfg: ExperimentConfig, rgb: torch.Tensor,
              depth: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              train_sampling: bool = False,
-             depth_trunk: Optional[Callable] = None) -> dict:
+             depth_trunk: Optional[Callable] = None,
+             consts: Optional[dict] = None) -> dict:
     """The per-step perception path: frozen encoders + waypoint heatmap +
     NMS candidates (re-drawn with `train_sampling`) + pano-token
-    embedding."""
+    embedding. `depth_trunk` and `consts` as in `encode_panorama`."""
     wp = encode_panorama(params, cfg, rgb, depth, generator, train_sampling,
-                         depth_trunk)
+                         depth_trunk, consts)
     wp.update(embed_panorama(params, cfg, {
         k: wp[k] for k in ("rgb_fts", "dep_fts", "loc_fts", "nav_types",
                            "view_masks")}))
@@ -216,10 +263,14 @@ class Agent:
 
     Runs on the GPU unless `device="cpu"` is passed; with no GPU and no
     `device="cpu"` it raises. Inputs may be numpy arrays or tensors.
+    `perceive_graph_stats()` counts the whole perceive's graph replays
+    and captures, and its eager calls on a CUDA device (a generator, the
+    tracer, the profiler, or an enclosing capture).
     `depth_graph_stats()` counts the depth trunk's graph replays and
     captures, and its eager calls on a CUDA device (made only inside
-    an enclosing capture); each call is the span `agent.depth`
-    (device-timed, with `graph` True where it replayed or captured)."""
+    an enclosing capture, the perceive graph's); each call is the span
+    `agent.depth` (device-timed, with `graph` True where it replayed or
+    captured)."""
 
     def __init__(self, cfg: ExperimentConfig,
                  params: Optional[AgentParams] = None, device="cuda"):
@@ -238,6 +289,13 @@ class Agent:
         self._depth_graphs = CapturedGraphs(
             lambda d: depth_resnet.encode_depth(depth_p, depth_cfg, d,
                                                 dtype=dtype))
+        self._depth_trunk = functools.partial(_traced_trunk,
+                                              self._depth_graphs, self.device)
+        # the whole perceive without a generator; it closes over no
+        # `self`, so a dropped agent frees its graphs' pools at once
+        self._perceive_graphs = CapturedGraphs(functools.partial(
+            perceive, self.params, cfg, depth_trunk=self._depth_trunk,
+            consts=perceive_constants(cfg, self.device)))
         if cfg.text_llm.enabled:
             dsv2_text.cast_matrices_(self.params.text_llm, dtype)
             # a parameter loaded as a view of a larger buffer (one flat
@@ -268,8 +326,7 @@ class Agent:
             out = encode_text(self.params, self.cfg, ids, mask)
         else:
             x = torch.stack([ids, mask.long()])
-            graph = (CapturedGraphs.engages(x) and not tracing.is_on()
-                     and not profiling())
+            graph = replays_graph(x)
             with tracing.span("agent.text_llm", device=self.device,
                               graph=graph):
                 out, counts = (self._text_graphs(x) if graph
@@ -304,17 +361,24 @@ class Agent:
     def perceive(self, rgb, depth,
                  generator: Optional[torch.Generator] = None) -> dict:
         """With a generator (on this device), the train-time waypoint
-        augmentation draws the candidates."""
+        augmentation draws the candidates. Without one, on a CUDA device,
+        the whole perceive is the replay of one CUDA graph per input
+        signature, unless the tracer is on or torch.profiler records in
+        any thread: then it runs eagerly (its depth trunk still a graph),
+        so that the spans and the profile see its kernels one by one."""
         with tracing.span("agent.upload", device=self.device):
             rgb, depth = self._t(rgb), self._t(depth)
-        return perceive(self.params, self.cfg, rgb, depth, generator,
-                        train_sampling=generator is not None,
-                        depth_trunk=self._depth_trunk)
+        g = self._perceive_graphs
+        if generator is None and replays_graph(rgb, depth):
+            return g(rgb, depth)
+        return g.eager(rgb, depth, generator,
+                       train_sampling=generator is not None)
 
-    def _depth_trunk(self, depth: torch.Tensor) -> torch.Tensor:
-        with tracing.span("agent.depth", device=self.device,
-                          graph=CapturedGraphs.engages(depth)):
-            return self._depth_graphs(depth)
+    def perceive_graph_stats(self) -> dict:
+        g = self._perceive_graphs
+        return {"perceive_graph_replays": g.replays,
+                "perceive_eager_calls": g.eager_calls,
+                "perceive_graph_captures": g.captures}
 
     def depth_graph_stats(self) -> dict:
         g = self._depth_graphs

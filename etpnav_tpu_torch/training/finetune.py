@@ -452,8 +452,9 @@ class FinetuneTrainer:
               gt_paths: Optional[dict] = None,
               save_every: Optional[int] = None) -> Dict[str, float]:
         """`iters` rollout + learn iterations; returns the means of the
-        loss, of the two phases' seconds and of the iteration's depth
-        trunk counts (`Agent.depth_graph_stats`) over them. save_every:
+        loss, of the two phases' seconds and of the iteration's graph
+        counts (`Agent.perceive_graph_stats`, `Agent.depth_graph_stats`)
+        over them. save_every:
         checkpoint to self.ckpt_dir every N iterations. Refuses a
         configuration with the DeepSeek-V2 text encoder, which is
         frozen."""
@@ -463,7 +464,7 @@ class FinetuneTrainer:
         for _ in range(iters):
             ratio = il.sample_ratio ** (
                 self.iteration // il.decay_interval + 1)
-            graphs0 = self.agent.depth_graph_stats()
+            graphs0 = self._graph_stats()
             with self.timer.phase("rollout", key=self.iteration):
                 rec = None
                 if self.mesh is None or self.mesh.mp_index == 0:
@@ -489,7 +490,7 @@ class FinetuneTrainer:
             self.logs["IL_loss"].append(loss)
             self.logs["rollout_s"].append(self.timer.last("rollout"))
             self.logs["learn_s"].append(self.timer.last("learn"))
-            for k, n in self.agent.depth_graph_stats().items():
+            for k, n in self._graph_stats().items():
                 self.logs[k].append(n - graphs0[k])
             self.writer.add_scalar("loss/IL_loss", loss, self.iteration)
             if self.iteration % 50 == 0:
@@ -503,6 +504,10 @@ class FinetuneTrainer:
                 self.save_checkpoint(os.path.join(
                     self.ckpt_dir, f"ckpt_iter{self.iteration}.pt"))
         return {k: float(np.mean(v[-iters:])) for k, v in self.logs.items()}
+
+    def _graph_stats(self) -> dict:
+        return {**self.agent.perceive_graph_stats(),
+                **self.agent.depth_graph_stats()}
 
     def evaluate(self, episode_count: int,
                  gt_paths: Optional[dict] = None,

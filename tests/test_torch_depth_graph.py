@@ -103,7 +103,9 @@ def test_server_stats_carry_the_depth_graph_counters(agent):
         assert {k: st[k] for k in ZERO} == ZERO
         assert {"steps_served", "batches", "failed_batches",
                 "deadline_batches", "mean_occupancy", "live_sessions",
-                "queue_depth", *ZERO, "text_encodes", "text_tokens",
+                "queue_depth", "perceive_graph_replays",
+                "perceive_eager_calls", "perceive_graph_captures", *ZERO,
+                "text_encodes", "text_tokens",
                 "moe_rows", "moe_groups", "moe_rows_elsewhere"} == st.keys()
     finally:
         server.shutdown()

@@ -339,9 +339,11 @@ def test_training_same_with_tracing_and_spans_nest():
                               on.params.named_parameters()):
         assert torch.equal(a, b), k
     assert on.logs["rollout_s"] and on.logs["learn_s"]
-    # the iteration's depth trunk counts, all 0 on the CPU
-    for k in ("depth_graph_replays", "depth_eager_calls",
-              "depth_graph_captures"):
+    # the iteration's perceive and depth trunk graph counts, all 0 on
+    # the CPU
+    for k in ("perceive_graph_replays", "perceive_eager_calls",
+              "perceive_graph_captures", "depth_graph_replays",
+              "depth_eager_calls", "depth_graph_captures"):
         assert on.logs[k] == off.logs[k] == [0], k
 
     spans = tracing.export()["spans"]
